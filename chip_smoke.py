@@ -6,11 +6,14 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. Build: the GPU's name and power limit; every CUDA kernel of the main
-   path compiled from ``src/repro_torch/csrc`` by nvcc (sm_90a).
+   paths compiled from ``src/repro_torch/csrc`` by nvcc (sm_90a).
 2. Kernels against their plain PyTorch versions on the card, at Yi-9B
    shapes and at the CPU test grid, f32 (2e-4) and bf16 (2e-2); kv_pull
    exact with untouched pages intact; the int8 round trip within
-   max|plane|/127.
+   max|plane|/127; flash_prefill at hymba-1.5b's full shape (window 1024,
+   128-token prefix, 1328 tokens); ssd_scan on the JAX test grid, the
+   decay extremes (finite) and the full mamba2-780m / hymba-1.5b shapes
+   at ragged lengths, f32 (1e-3) and bf16 x (2e-2).
 3. Serve through the normal entry point: ``repro_torch.launch.serve`` at
    the full Yi-9B config (48 layers, d_model 4096, random weights), once
    plain and once with ``--quantize-transfer``.
@@ -21,12 +24,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal a monolithic b = 3 decode_step run over the stacked prefill
    states; then once with ``quantize_transfer=True`` (int8 wire bytes,
    nbytes/2+4 per read, landed by kv_pull_dequant).
+6. mamba2-780m at full width (48 layers, d_model 1536, random weights)
+   through ``launch.steps``' prefill and serve steps on the same ragged
+   prompts: monolithically, then disaggregated, each request's SSM state
+   written into f32 slots, pulled slot to slot by ``pull_state`` (kv_pull
+   on the card, 77,414,400 bytes a request) and decoded from the pulled
+   slots: the tokens must equal the monolithic ones, one at a time and
+   all three together at b = 3.
+7. hymba-1.5b at full width (32 layers, d_model 1600, 25/5 heads, window
+   1024, 128 meta tokens) on prompts of 96, 130 and 1200 tokens (the
+   last passes the window: the prefill mask and the ring's wrap run).
+   With the weights in f32, the three decoded together in one ring batch
+   (mixed positions) must give each one's b = 1 logits, step by step.
+   For both models, prefill(p) + decode_step(t) must equal prefill(p + t)
+   with the weights in f32.
    Every serving run is a path of its own: the launch counts are zeroed
    just before it and read just after, and the run fails unless each
-   kernel it must use launched (flash_prefill once per layer and prompt,
-   paged_attention once per layer and decode step).
-5. Times at the main path's shapes: each kernel, its plain version, one
-   PyTorch library call computing the same function, and the bound.
+   kernel it must use launched (flash_prefill and ssd_scan once per
+   layer and prompt, paged_attention once per layer and decode step) and
+   no other did.
+5. Times at the main paths' shapes: each kernel, its plain version, one
+   PyTorch library call computing the same function (none computes the
+   SSD scan), and the bound.
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -44,9 +63,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12             # H100 SXM f32 without tensor cores
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}   # the JAX package's own for ssd_scan
+CONSISTENCY_TOL = 1e-3             # f32 prefill(p) + decode(t) vs prefill(p + t), logits
 YI = dict(h=32, g=4, d=128, bs=32)
+MAMBA = dict(nh=48, hd=64, ns=128)
+HYMBA = dict(h=25, g=5, d=64, nh=50, hd=64, ns=16, window=1024, meta=128)
 PROMPTS = (96, 130, 257)
+HYMBA_PROMPTS = (96, 130, 1200)
 MAX_NEW = 8
 
 
@@ -146,6 +171,11 @@ def check_flash_prefill(gen, dev):
     for s in PROMPTS:
         case(1, s, YI["h"], YI["g"], YI["d"], torch.float32, causal=True)
         err = max(err, case(1, s, YI["h"], YI["g"], YI["d"], torch.bfloat16, causal=True))
+    # hymba-1.5b: the longest prompt with its meta prefix, window and prefix
+    hy = dict(causal=True, sliding_window=HYMBA["window"], prefix_len=HYMBA["meta"])
+    s = max(HYMBA_PROMPTS) + HYMBA["meta"]
+    for dtype in (torch.float32, torch.bfloat16):
+        case(1, s, HYMBA["h"], HYMBA["g"], HYMBA["d"], dtype, **hy)
     return err
 
 
@@ -252,6 +282,53 @@ def check_kv_pull_dequant(gen, dev):
     return 0.0
 
 
+def ssd_inputs(gen, dev, b, s, nh, hd, ns, dtype=None, dt_fill=None, a=None):
+    """The inputs of tests/test_kernels.py's ssd_scan cases, drawn on the card."""
+    import torch
+
+    x = (torch.randn(b, s, nh, hd, generator=gen, device=dev) * 0.5).to(dtype or torch.float32)
+    if dt_fill is None:
+        dt = torch.randn(b, s, nh, generator=gen, device=dev).abs() * 0.1 + 0.01
+    else:
+        dt = torch.full((b, s, nh), dt_fill, device=dev)
+    if a is None:
+        a = -(torch.randn(nh, generator=gen, device=dev).abs() + 0.5)
+    B = torch.randn(b, s, ns, generator=gen, device=dev) * 0.3
+    C = torch.randn(b, s, ns, generator=gen, device=dev) * 0.3
+    d_skip = torch.randn(nh, generator=gen, device=dev)
+    return x, dt, a, B, C, d_skip
+
+
+def check_ssd_scan(gen, dev):
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    def case(b, s, nh, hd, ns, chunk, dtype=torch.float32, **kw):
+        args = ssd_inputs(gen, dev, b, s, nh, hd, ns, dtype, **kw)
+        y, st = ssd_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
+        tol = SSD_TOL[str(dtype).split(".")[1]]
+        what = f"ssd_scan b={b} s={s} nh={nh} hd={hd} ns={ns} chunk={chunk} {dtype} {kw}"
+        return max(close(y, y_ref, tol, what + " y"), close(st, st_ref, tol, what + " state"))
+
+    for s, nh, hd, ns, chunk in ((128, 4, 32, 16, 32), (64, 2, 64, 128, 64),
+                                 (96, 50, 64, 16, 32)):
+        case(2, s, nh, hd, ns, chunk)
+    a = torch.tensor([-0.01, -8.0], device=dev)  # decay extremes: finite (close checks)
+    for dt_fill in (1e-3, 5.0):
+        case(1, 64, 2, 16, 8, 16, dt_fill=dt_fill, a=a)
+    err = 0.0
+    for s in PROMPTS:
+        err = max(err, case(1, s, MAMBA["nh"], MAMBA["hd"], MAMBA["ns"], 128))
+    for s in (HYMBA_PROMPTS[0] + HYMBA["meta"], HYMBA_PROMPTS[-1] + HYMBA["meta"]):
+        err = max(err, case(1, s, HYMBA["nh"], HYMBA["hd"], HYMBA["ns"], 128))
+    case(1, max(PROMPTS), MAMBA["nh"], MAMBA["hd"], MAMBA["ns"], 128, torch.bfloat16)
+    return err
+
+
 # --------------------------------------------------------- phases 3-4
 def greedy(model, logits):
     import torch
@@ -308,9 +385,10 @@ def kernel_ops():
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
     from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     return {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
-            "kv_pull": kv_pull, "kv_pull_dequant": kv_pull_dequant}
+            "kv_pull": kv_pull, "kv_pull_dequant": kv_pull_dequant, "ssd_scan": ssd_scan}
 
 
 def read_counts():
@@ -326,8 +404,10 @@ def expect_launches(path, got, n_layers, prompts, decode_steps, quantized):
     """Fail unless ``path`` (a run whose counts were zeroed just before it)
     went through the kernels it must use: flash_prefill once per layer and
     prompt, paged_attention once per layer and decode step, kv_pull (plain
-    reads) or kv_pull_dequant (quantized reads) at least once."""
-    want = {"flash_prefill": n_layers * prompts, "paged_attention": n_layers * decode_steps}
+    reads) or kv_pull_dequant (quantized reads) at least once, and never
+    ssd_scan (Yi-9B has no SSM)."""
+    want = {"flash_prefill": n_layers * prompts, "paged_attention": n_layers * decode_steps,
+            "ssd_scan": 0}
     bad = [f"{k} {got[k]} != {v}" for k, v in want.items() if got[k] != v]
     if quantized and got["kv_pull_dequant"] <= 0:
         bad.append("kv_pull_dequant never launched")
@@ -434,6 +514,317 @@ def phase_serve(model, params, prompts, refs):
     return serve_counts, per_request
 
 
+# --------------------------------------------------------- phases 6-7
+def expect_counts(path, got, exact, at_least=None):
+    """Fail unless ``path``'s launch counts (zeroed just before it) equal
+    ``exact`` and reach ``at_least``, kernel by kernel."""
+    bad = [f"{k} {got[k]} != {v}" for k, v in exact.items() if got[k] != v]
+    bad += [f"{k} {got[k]} < {v}" for k, v in (at_least or {}).items() if got[k] < v]
+    if bad:
+        raise AssertionError(f"{path}: launches {got}: {'; '.join(bad)}")
+    log(f"{path}: launches {got}")
+    return got
+
+
+def decode_greedy(serve_step, params, state, tok, n):
+    """``n`` serve steps from (state, first tokens [b]) -> b token lists."""
+    out = [[int(x)] for x in tok.tolist()]
+    for _ in range(n):
+        tok, state = serve_step(params, state, tok)
+        for seq, x in zip(out, tok.tolist()):
+            seq.append(int(x))
+    return out
+
+
+def steps_generate(model, params, prompts, n):
+    """Monolithic runs through launch.steps, one prompt at a time ->
+    (token lists, first tokens, prefill states)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import stack_states
+
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    outs, firsts, states = [], [], []
+    for t in prompts:
+        tok, state = prefill_step(params, {"tokens": torch.as_tensor(t[None])})
+        firsts.append(tok)
+        states.append(state)
+        # decode from a copy: decode steps write rings in place
+        outs.append(decode_greedy(serve_step, params, stack_states([state]), tok, n)[0])
+    return outs, firsts, states
+
+
+def cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def consistency_f32(model, p32, tokens, what):
+    """prefill(p) + decode_step(t) against prefill(p + t), weights ``p32``
+    in f32: the contract of tests/test_model_correctness.py:169-187."""
+    import torch
+
+    toks = torch.as_tensor(tokens[None])
+    ref, _ = model.prefill(p32, {"tokens": toks})
+    _, state = model.prefill(p32, {"tokens": toks[:, :-1]})
+    out, _ = model.decode_step(p32, state, toks[:, -1])
+    torch.cuda.synchronize()
+    diff = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not torch.isfinite(out).all() or diff > CONSISTENCY_TOL:
+        raise AssertionError(f"{what}: f32 prefill+decode vs prefill max |diff| {diff} "
+                             f"above {CONSISTENCY_TOL}")
+    log(f"{what}: f32 prefill({len(tokens) - 1}) + decode_step vs prefill({len(tokens)}): "
+        f"max |diff| {diff:.3g} (max |logit| {scale:.3g}, tolerance {CONSISTENCY_TOL})")
+    return diff
+
+
+def batch_f32(model, p32, prompts, n, what):
+    """Each sequence decoded in one batch (b = len(prompts), mixed
+    positions) against its own b = 1 run, weights ``p32`` in f32: n steps
+    fed the b = 1 greedy tokens, every step's logits within
+    CONSISTENCY_TOL."""
+    import torch
+
+    from repro_torch.models.transformer import stack_states
+
+    states, singles, fed = [], [], []
+    for t in prompts:
+        logits, st = model.prefill(p32, {"tokens": torch.as_tensor(t[None])})
+        states.append(st)
+        st = stack_states([st])  # decode from a copy: steps write rings in place
+        rows, toks = [], []
+        for _ in range(n):
+            tok = torch.argmax(logits[:, : model.cfg.vocab_size], dim=-1).to(torch.int32)
+            toks.append(tok)
+            logits, st = model.decode_step(p32, st, tok)
+            rows.append(logits[0])
+        singles.append(rows)
+        fed.append(toks)
+    state, diff = stack_states(states), 0.0
+    for step in range(n):
+        logits, state = model.decode_step(p32, state, torch.cat([f[step] for f in fed]))
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{what}: b = {len(prompts)} step {step}: non-finite logits")
+        for i, rows in enumerate(singles):
+            diff = max(diff, float((logits[i] - rows[step]).abs().max()))
+    torch.cuda.synchronize()
+    if diff > CONSISTENCY_TOL:
+        raise AssertionError(f"{what}: f32 b = {len(prompts)} vs b = 1 decode logits max "
+                             f"|diff| {diff} above {CONSISTENCY_TOL}")
+    log(f"{what}: f32 decode at b = {len(prompts)} vs each b = 1 run, {n} steps: max |diff| "
+        f"{diff:.3g} (tolerance {CONSISTENCY_TOL})")
+    return diff
+
+
+class StateLink:
+    """A prefill and a decode worker's f32 ``SlotCache``s on the card, joined
+    by a connection and a transfer engine, as tests/test_pull_push.py:133-159
+    composes them.  One slot per request and layer: the SSD state
+    flattened, then the conv tail cast to f32 (a bf16 slot would round the
+    f32 SSD state)."""
+
+    def __init__(self, cfg, n_slots, dev):
+        import torch
+
+        from repro_torch.core.connection import (
+            ChipInfo, ConnectionManager, DescriptorRegistry, WorkerInfo)
+        from repro_torch.core.transfer_engine import TransferEngine
+        from repro_torch.models.ssm import ssm_slot_elems
+        from repro_torch.serving.kv_cache import SlotCache
+
+        self.cfg = cfg
+        elems = ssm_slot_elems(cfg)
+        kw = dict(num_layers=cfg.num_layers, num_slots=n_slots, state_elems=elems,
+                  dtype=torch.float32, device=dev)
+        self.pre = SlotCache("p0", base_address=0x10_0000_0000, **kw)
+        self.dec = SlotCache("d0", base_address=0x20_0000_0000, **kw)
+        self.engine = TransferEngine()
+        self.engine.register_memory(self.pre.memory_region())
+        self.engine.register_memory(self.dec.memory_region())
+        reg = DescriptorRegistry("p0")
+        for d in self.pre.descriptors():
+            reg.register(d)
+
+        def info(wid, role):
+            return WorkerInfo(wid, role, "10.0.0.1", (ChipInfo(0, f"ici://{wid}/0"),))
+
+        self.conn = ConnectionManager(info("d0", "decode")).connect(info("p0", "prefill"), reg)
+        self.slot_nbytes = elems * 4
+
+    def park(self, state, slot):
+        """The prefill side writes one request's state (b = 1) into ``slot``."""
+        from repro_torch.models.ssm import pack_ssm_slot
+
+        for layer in range(self.pre.num_layers):
+            self.pre.write_slot(layer, slot, pack_ssm_slot(state.ssd_state[layer, 0],
+                                                           state.conv_state[layer, 0]))
+
+    def pull(self, request_id, prompt_len, remote_slot, local_slot):
+        """pull_state into the decode cache; returns the bytes moved."""
+        from repro_torch.core.pull_push import pull_state
+        from repro_torch.serving.request import Request
+
+        before = self.engine.stats.bytes_moved
+        pull_state(Request(request_id, prompt_len=prompt_len, max_new_tokens=MAX_NEW),
+                   conn=self.conn, engine=self.engine, decode_cache=self.dec,
+                   remote_slot=remote_slot, local_slot=local_slot)
+        return self.engine.stats.bytes_moved - before
+
+    def state(self, slots, context_lens, conv_dtype):
+        """The decode side rebuilds a DecodeState (b = len(slots)) from its slots."""
+        import torch
+
+        from repro_torch.models.ssm import unpack_ssm_slots
+        from repro_torch.models.transformer import DecodeState
+
+        ssd, conv = [], []
+        for layer in range(self.dec.num_layers):
+            rows = torch.stack([self.dec.read_slot(layer, s) for s in slots])
+            layer_ssd, layer_conv = unpack_ssm_slots(rows, self.cfg, conv_dtype)
+            ssd.append(layer_ssd)
+            conv.append(layer_conv)
+        return DecodeState(
+            context_lens=torch.tensor(context_lens, dtype=torch.int32, device=rows.device),
+            ssd_state=torch.stack(ssd), conv_state=torch.stack(conv))
+
+
+def phase_mamba2(dev):
+    """Phase 6.  Returns (launch counts of the disaggregated run, launches
+    per request, bytes pulled per request)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import stack_states
+
+    cfg = get_config("mamba2-780m")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"phase 6: {cfg.describe()}; weights in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPTS]
+    L, n = cfg.num_layers, len(prompts)
+    quiet = {"flash_prefill": 0, "paged_attention": 0, "kv_pull_dequant": 0}
+
+    reset_counts()
+    t0 = time.perf_counter()
+    refs, firsts, states = steps_generate(model, params, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    expect_counts("phase 6: monolithic", read_counts(),
+                  {"ssd_scan": L * n, "kv_pull": 0, **quiet})
+    log(f"phase 6: monolithic, {n} prompts in {time.perf_counter() - t0:.1f}s")
+
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    link = StateLink(cfg, n_slots=4, dev=dev)
+    local = [(i + 1) % 4 for i in range(n)]  # the decode side's slots differ
+    reset_counts()
+    t0 = time.perf_counter()
+    pulled = []
+    for i, (tokens, ref) in enumerate(zip(prompts, refs)):
+        tok, state = prefill_step(params, {"tokens": torch.as_tensor(tokens[None])})
+        link.park(state, slot=i)
+        moved = link.pull(f"r{i}", len(tokens), remote_slot=i, local_slot=local[i])
+        want = L * link.slot_nbytes
+        if moved != want:
+            raise AssertionError(f"phase 6: pulled {moved} B != {L} x {link.slot_nbytes}")
+        landed = link.state([local[i]], [len(tokens)], state.conv_state.dtype)
+        if not (torch.equal(landed.ssd_state, state.ssd_state)
+                and torch.equal(landed.conv_state, state.conv_state)):
+            raise AssertionError("phase 6: the pulled state differs from the prefill state")
+        got = decode_greedy(serve_step, params, landed, tok, MAX_NEW)[0]
+        if got != ref:
+            raise AssertionError(f"phase 6: {len(tokens)}-token prompt: disaggregated "
+                                 f"{got} != monolithic {ref}")
+        pulled.append(moved)
+        log(f"phase 6: {len(tokens)}-token prompt: slot {i} -> slot {local[i]}, pulled "
+            f"{moved} B; tokens {got} == monolithic")
+    torch.cuda.synchronize()
+    counts = expect_counts("phase 6: disaggregated", read_counts(),
+                           {"ssd_scan": L * n, **quiet}, at_least={"kv_pull": n})
+    log(f"phase 6: {n} requests disaggregated in {time.perf_counter() - t0:.1f}s; engine "
+        f"{link.engine.stats.txns_submitted} reads, {link.engine.stats.bytes_moved} B")
+
+    # all three decode together from the pulled slots vs monolithic b = 3
+    reset_counts()
+    together = decode_greedy(serve_step, params,
+                             link.state(local, [len(t) for t in prompts], torch.bfloat16),
+                             torch.cat(firsts), MAX_NEW)
+    expect_counts("phase 6: together at b = 3 from the pulled slots", read_counts(),
+                  {"ssd_scan": 0, "kv_pull": 0, **quiet})
+    mono3 = decode_greedy(serve_step, params, stack_states(states), torch.cat(firsts),
+                          MAX_NEW)
+    if together != mono3:
+        raise AssertionError(f"phase 6: b = 3 disaggregated {together} != monolithic {mono3}")
+    same_b1 = sum(a == b for a, b in zip(together, refs))
+    log(f"phase 6: together at b = 3: every stream equals the monolithic b = 3 stream; "
+        f"{same_b1}/{n} also equal the b = 1 streams")
+    consistency_f32(model, cast_tree(params, torch.float32), prompts[-1],
+                    "phase 6: mamba2-780m")
+    per_request = {k: v / n for k, v in counts.items()}
+    return counts, per_request, pulled[0]
+
+
+def phase_hymba():
+    """Phase 7.  Returns the launch counts of the monolithic run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.transformer import stack_states
+
+    cfg = get_config("hymba-1.5b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"phase 7: {cfg.describe()}; weights in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in HYMBA_PROMPTS]
+    L, n = cfg.num_layers, len(prompts)
+    reset_counts()
+    t0 = time.perf_counter()
+    refs, firsts, states = steps_generate(model, params, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    counts = expect_counts("phase 7: monolithic", read_counts(), {
+        "flash_prefill": L * n, "ssd_scan": L * n, "paged_attention": 0, "kv_pull": 0,
+        "kv_pull_dequant": 0})
+    log(f"phase 7: {n} prompts in {time.perf_counter() - t0:.1f}s")
+    cap = HYMBA["window"] + model.BLOCK_SIZE
+    for tokens, st, ref in zip(prompts, states, refs):
+        if st.ring_k.shape[2] != cap or st.meta_k.shape[2] != HYMBA["meta"]:
+            raise AssertionError(f"phase 7: ring {tuple(st.ring_k.shape)}, meta "
+                                 f"{tuple(st.meta_k.shape)}")
+        filled = int((st.ring_pos >= 0).sum())
+        if filled != min(cap, len(tokens)):
+            raise AssertionError(f"phase 7: {filled} ring slots filled, want "
+                                 f"{min(cap, len(tokens))}")
+        if any(not 0 <= t < cfg.vocab_size for t in ref):
+            raise AssertionError(f"phase 7: token out of range in {ref}")
+        log(f"phase 7: {len(tokens)}-token prompt (+{HYMBA['meta']} meta): ring "
+            f"{filled}/{cap} slots, tokens {ref}")
+    together = decode_greedy(make_serve_step(model), params, stack_states(states),
+                             torch.cat(firsts), MAX_NEW)
+    if any(len(t) != MAX_NEW + 1 or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in together):
+        raise AssertionError(f"phase 7: b = 3 streams {together}")
+    same_b1 = sum(a == b for a, b in zip(together, refs))
+    log(f"phase 7: together at b = 3 (mixed positions in one ring batch), bf16: {same_b1}/{n} "
+        f"streams equal the b = 1 streams (logged; the f32 check below asserts)")
+    p32 = cast_tree(params, torch.float32)
+    batch_f32(model, p32, prompts, MAX_NEW, "phase 7: hymba-1.5b")
+    consistency_f32(model, p32, prompts[-1], "phase 7: hymba-1.5b")
+    return counts
+
+
 # ------------------------------------------------------------ phase 5
 def time_ms(fn, iters=50, warmup=3):
     import torch
@@ -451,9 +842,41 @@ def time_ms(fn, iters=50, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
-    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3, \
-        ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations")
+def bound_ms(nbytes, flops, peak=PEAK_BF16_FLOPS):
+    return max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3, \
+        ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak else "operations")
+
+
+def ssd_flops(b, s, nh, hd, ns, chunk):
+    """Operations the SSD scan needs at ``chunk`` over this run's rows (2
+    per multiply-add).  B and C are shared by every head (one group), so a
+    chunk of lc rows takes its lc(lc+1)/2 visible C.B dots (ns each) once;
+    each head adds their decay factors (one multiply each), the scores'
+    product with x (hd each), the prior state's read (lc x hd x ns) and
+    the state update (hd x ns x lc).  Work the kernel repeats (the scores
+    in every head and hd tile) is not counted."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        tri = lc * (lc + 1) // 2
+        total += 2 * tri * ns + nh * (tri + 2 * tri * hd + 4 * lc * hd * ns)
+    return b * total
+
+
+def ssd_time_row(gen, dev, s, nh, hd, ns, what):
+    from repro_torch.kernels.ssd_scan.ops import KERNEL_CHUNK, ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    x, dt, a, B, C, d_skip = ssd_inputs(gen, dev, 1, s, nh, hd, ns)
+    nbytes = 2 * x.numel() * 4 + dt.numel() * 4 + 2 * B.numel() * 4 + 2 * nh * 4 \
+        + nh * hd * ns * 4
+    return dict(
+        ms=time_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
+        plain_ms=time_ms(lambda: ssd_scan_ref(x, dt, a, B, C, d_skip)),
+        library_ms=None,  # no single PyTorch call computes the SSD scan
+        bound=bound_ms(nbytes, ssd_flops(1, s, nh, hd, ns, KERNEL_CHUNK), PEAK_F32_FLOPS),
+        shape=f"{what}: b=1 s={s} nh={nh} hd={hd} ns={ns} f32, chunk {KERNEL_CHUNK}; "
+              f"bound at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32 (no tensor cores)")
 
 
 def phase_times(gen, dev):
@@ -535,6 +958,14 @@ def phase_times(gen, dev):
             0, dl, (src.float() * scales[:, None]).to(bf))),
         bound=bound_ms(n * elems * (1 + 2) + n * 12, n * elems),
         shape=f"{n} pages x {elems} int8 -> bf16")
+
+    # ssd_scan: one layer's prefill scan, mamba2-780m's longest prompt, and
+    # hymba-1.5b's longest prompt with its meta prefix
+    rows["ssd_scan"] = ssd_time_row(gen, dev, max(PROMPTS), MAMBA["nh"], MAMBA["hd"],
+                                    MAMBA["ns"], "mamba2-780m")
+    rows["ssd_scan"]["also"] = [ssd_time_row(
+        gen, dev, max(HYMBA_PROMPTS) + HYMBA["meta"], HYMBA["nh"], HYMBA["hd"],
+        HYMBA["ns"], "hymba-1.5b")]
     return rows
 
 
@@ -547,7 +978,20 @@ SOURCES = {
                 "src/repro/kernels/kv_pull/kernel.py:68"),
     "kv_pull_dequant": ("src/repro_torch/csrc/kv_pull.cu",
                         "src/repro/kernels/kv_pull/kernel.py:92"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:87"),
 }
+
+
+def fmt_ms(x):
+    return "none" if x is None else f"{x:.4f} ms"
+
+
+def timing(row):
+    """A phase-5 row's numbers under the keys of the kernels line."""
+    bms, by = row["bound"]
+    return {"ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": row["library_ms"], "shape": row["shape"]}
 
 
 def main() -> int:
@@ -563,6 +1007,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = gpu_line()
     log(f"GPU: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -573,8 +1018,10 @@ def main() -> int:
         "flash_prefill": check_flash_prefill(gen, dev),
         "kv_pull": check_kv_pull(gen, dev),
         "kv_pull_dequant": check_kv_pull_dequant(gen, dev),
+        "ssd_scan": check_ssd_scan(gen, dev),
     }
-    log(f"phase 2: every kernel matches its plain version; yi-9b bf16 max |err| {errs}")
+    log(f"phase 2: every kernel matches its plain version; max |err| at full width "
+        f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}")
 
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -592,23 +1039,35 @@ def main() -> int:
     del params, model
     torch.cuda.empty_cache()
 
+    mamba_counts, mamba_per_request, pulled = phase_mamba2(dev)
+    torch.cuda.empty_cache()
+    hymba_counts = phase_hymba()
+    torch.cuda.empty_cache()
+
     rows = phase_times(gen, dev)
     kernels = []
     for name, row in rows.items():
         src, replaces = SOURCES[name]
-        bms, by = row["bound"]
-        quantized = name == "kv_pull_dequant"
+        extra = {}
+        if name == "ssd_scan":
+            launches, run = mamba_counts[name], "phase 6: mamba2-780m disaggregated"
+            per = mamba_per_request[name]
+            extra = {"launches_hymba": hymba_counts[name], "bytes_pulled_per_request": pulled,
+                     "also": [timing(r) for r in row["also"]]}
+        else:
+            quantized = name == "kv_pull_dequant"
+            launches = serve_counts[quantized][name]
+            run = "launch.serve" + (" --quantize-transfer" if quantized else "")
+            per = per_request[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": serve_counts[quantized][name],
-            "launches_run": "launch.serve" + (" --quantize-transfer" if quantized else ""),
-            "launches_per_request": per_request[name],
-            "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": bms, "bound_by": by, "library_ms": row["library_ms"],
-            "shape": row["shape"]})
-        log(f"phase 5: {name} [{row['shape']}]: {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-            f"{bms:.5f} ms by {by}")
+            "launches": launches, "launches_run": run, "launches_per_request": per,
+            "max_abs_err": errs[name], **timing(row), **extra})
+        for r in [timing(row)] + extra.get("also", []):
+            log(f"phase 5: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
+                f"{r['bound_ms']:.5f} ms by {r['bound_by']}")
+    log(f"all phases in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,8 @@ turns into numpy arrays (``jax.tree.map(np.asarray, params)``); the port
 uses the same dict layout (dense ``w`` as ``[in, out]``, layers stacked
 ``[L, ...]``), so conversion is a leaf-by-leaf copy.  bf16 numpy arrays
 (numpy's ``bfloat16`` extension dtype) are carried bit for bit through
-their 16-bit pattern.  ``DecodeState`` converts both ways through its
-paged-KV fields.
+their 16-bit pattern.  ``DecodeState`` converts both ways through all its
+fields: paged KV, ring KV, meta KV and SSM state.
 """
 from __future__ import annotations
 
@@ -17,7 +17,9 @@ from repro_torch.models.transformer import DecodeState
 
 __all__ = ["tensor_from_numpy", "params_from_jax", "state_from_jax", "state_to_numpy"]
 
-_STATE_FIELDS = ("context_lens", "k_pages", "v_pages", "block_tables")
+_STATE_FIELDS = ("context_lens", "k_pages", "v_pages", "block_tables", "ring_k",
+                 "ring_v", "ring_pos", "meta_k", "meta_v", "ssd_state", "conv_state")
+_KV_FIELDS = ("k_pages", "v_pages", "ring_k", "ring_v", "meta_k", "meta_v")
 
 
 def tensor_from_numpy(a, *, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -39,18 +41,19 @@ def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None):
 
 def state_from_jax(state, *, device="cpu", dtype: torch.dtype | None = None) -> DecodeState:
     """A JAX ``DecodeState`` whose leaves are numpy arrays -> port state.
-    ``dtype`` applies to the KV pages only."""
+    ``dtype`` applies to the KV tensors (pages, ring, meta) only: the SSD
+    state stays f32 and the conv state keeps its own dtype."""
     def conv(name):
         a = getattr(state, name)
         if a is None:
             return None
         return tensor_from_numpy(a, device=device,
-                                 dtype=dtype if name.endswith("pages") else None)
+                                 dtype=dtype if name in _KV_FIELDS else None)
     return DecodeState(**{f: conv(f) for f in _STATE_FIELDS})
 
 
 def state_to_numpy(state: DecodeState) -> dict[str, np.ndarray | None]:
-    """Port state -> dict of numpy arrays (f32 pages for bf16 ones), the
+    """Port state -> dict of numpy arrays (f32 for bf16 tensors), the
     keyword arguments of the JAX ``DecodeState``."""
     out = {}
     for f in _STATE_FIELDS:

@@ -1,19 +1,23 @@
-"""Decoder-only LM, dense path — the port of
+"""Decoder-only LM for the dense, SSM and hybrid families — the port of
 ``src/repro/models/transformer.py``.
 
-Covered: ``DecodeState`` (paged KV), ``init_params``, ``prefill`` with the
-paged branch of ``_caches_to_state``, ``decode_step`` and
-``decode_step_layerwise``.  Layers are a Python loop over params stacked
-``[L, ...]`` (the reference's ``lax.scan`` has no counterpart to gain
-here: PyTorch runs eagerly).  Prefill attention always goes through the
-flash_prefill kernel, decode attention through the paged_attention
-kernel.  MoE, sliding-window ring KV, SSM/hybrid, VLM and meta tokens
-raise ``NotImplementedError``: they are later slices (ROADMAP.md, queue 1
-item 8).
+Covered: ``DecodeState`` (paged KV, sliding-window ring KV, meta-token KV,
+SSM state), ``init_params``, ``prefill`` (with the meta-token prefix),
+``decode_step`` and ``decode_step_layerwise`` (paged archs only, as in the
+reference).  Layers are a Python loop over params stacked ``[L, ...]``
+(the reference's ``lax.scan`` has no counterpart to gain here: PyTorch
+runs eagerly).  Prefill attention always goes through the flash_prefill
+kernel (with the sliding window and the always-visible meta prefix),
+decode attention over pages through the paged_attention kernel, the SSD
+scan of prefill through the ssd_scan kernel.  Ring-buffer decode
+attention is plain torch: the reference has no kernel for it.  MoE, VLM
+and encoder-decoder models raise ``NotImplementedError``: they are later
+slices (ROADMAP.md, queue 1 item 8).
 
-Decode steps update the state's KV pages IN PLACE (the new token is
-written into the current page of every layer) and return a state that
-shares those pages; the reference returns fresh arrays instead.
+Decode steps update the state's KV pages and ring buffers IN PLACE (the
+new token is written into the current page or ring slot of every layer)
+and return a state that shares them; the reference returns fresh arrays
+instead.  SSM states are replaced, not updated.
 """
 from __future__ import annotations
 
@@ -26,29 +30,54 @@ from repro_torch.models.attention import KVPages, paged_decode_with_write, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import PARAM_DTYPE, dense, normal_, rmsnorm, swiglu
+from repro_torch.models.ssm import ssm_prefill, ssm_step
 
-__all__ = ["DecoderLM", "DecodeState"]
+__all__ = ["DecoderLM", "DecodeState", "stack_states"]
 
 
 @dataclasses.dataclass
 class DecodeState:
-    context_lens: torch.Tensor                 # [b] int32 tokens present
+    context_lens: torch.Tensor                 # [b] int32 tokens present (incl. meta)
+    # paged attention KV (dense)
     k_pages: torch.Tensor | None = None        # [L, b, per_seq, bs, g, hd]
     v_pages: torch.Tensor | None = None
     block_tables: torch.Tensor | None = None   # [b, per_seq] int32 within-seq ids
+    # ring buffer KV (sliding-window archs)
+    ring_k: torch.Tensor | None = None         # [L, b, cap, g, hd]
+    ring_v: torch.Tensor | None = None
+    ring_pos: torch.Tensor | None = None       # [b, cap] int32 absolute positions (-1 empty)
+    # meta-token KV (hymba; always visible)
+    meta_k: torch.Tensor | None = None         # [L, b, m, g, hd]
+    meta_v: torch.Tensor | None = None
+    # SSM state
+    ssd_state: torch.Tensor | None = None      # [L, b, nh, hd, ns] f32
+    conv_state: torch.Tensor | None = None     # [L, b, k-1, c]
+
+
+def stack_states(states) -> DecodeState:
+    """DecodeStates of single sequences -> one state at b = len(states),
+    in new tensors.  For ring, meta and SSM states only: their shapes do
+    not depend on the prompt's length (paged KV would need a common
+    per-sequence block count)."""
+    out = {}
+    for f in dataclasses.fields(DecodeState):
+        vals = [getattr(st, f.name) for st in states]
+        if vals[0] is None:
+            out[f.name] = None
+        elif f.name in ("context_lens", "block_tables", "ring_pos"):
+            out[f.name] = torch.cat(vals)
+        else:  # [L, b, ...]
+            out[f.name] = torch.cat(vals, dim=1)
+    return DecodeState(**out)
 
 
 def _unsupported(cfg: ModelConfig) -> str | None:
     if cfg.is_encoder_decoder:
         return "encoder-decoder (EncDecLM)"
-    if cfg.family not in ("dense",):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         return f"family {cfg.family!r}"
-    if cfg.sliding_window:
-        return "sliding-window ring KV"
-    if cfg.num_meta_tokens:
-        return "meta tokens"
-    if not cfg.has_attention:
-        return "attention-free"
+    if not cfg.has_attention and not cfg.has_ssm:
+        return "a model with neither attention nor SSM"
     return None
 
 
@@ -66,16 +95,20 @@ class DecoderLM:
         if missing is not None:
             raise NotImplementedError(
                 f"{cfg.name}: {missing} is not ported yet — the port covers the "
-                "dense decoder (see ROADMAP.md, queue 1 item 8)")
+                "dense, SSM and hybrid decoders (see ROADMAP.md, queue 1 item 8)")
         self.cfg = cfg
         self.device = resolve_device(device)
+
+    def _ffn_kind(self) -> str:
+        return {"dense": "mlp", "hybrid": "mlp", "ssm": "none"}[self.cfg.family]
 
     # ------------------------------------------------------------- init
     def init_params(self, seed: int = 0, device: str | torch.device | None = None) -> dict:
         """Random weights from a seeded ``torch.Generator`` on ``device``
-        (default: the model's), with the reference's layout, scales and
-        dtype (bf16).  The numbers differ from the JAX init's: the tests
-        carry JAX weights over with ``bridge.params_from_jax`` instead."""
+        (default: the model's), with the reference's keys, layout, scales
+        and dtypes (bf16; the SSM's ``a_log``, ``dt_bias`` and ``d_skip``
+        in f32).  The numbers differ from the JAX init's: the tests carry
+        JAX weights over with ``bridge.params_from_jax`` instead."""
         cfg = self.cfg
         dev = self.device if device is None else resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -93,21 +126,28 @@ class DecoderLM:
                 normal_(w[layer], gen, d_in ** -0.5)
             return {"w": w}
 
-        layers = {
-            "attn_norm": {"scale": ones(L, d)},
-            "attn": {
+        layers: dict = {}
+        if cfg.has_attention:
+            layers["attn_norm"] = {"scale": ones(L, d)}
+            layers["attn"] = {
                 "q": stacked_dense(d, cfg.attn_dim),
                 "k": stacked_dense(d, cfg.kv_dim),
                 "v": stacked_dense(d, cfg.kv_dim),
                 "o": stacked_dense(cfg.attn_dim, d),
-            },
-            "mlp_norm": {"scale": ones(L, d)},
-        }
-        if cfg.mlp_type == "swiglu":
-            layers["mlp"] = {"gate": stacked_dense(d, ff), "up": stacked_dense(d, ff),
-                             "down": stacked_dense(ff, d)}
-        else:
-            layers["mlp"] = {"up": stacked_dense(d, ff), "down": stacked_dense(ff, d)}
+            }
+        if cfg.has_ssm:
+            layers["ssm_norm"] = {"scale": ones(L, d)}
+            layers["ssm"] = self._init_ssm(gen, dev, stacked_dense)
+        if cfg.family == "hybrid":
+            layers["attn_out_norm"] = {"scale": ones(L, d)}
+            layers["ssm_out_norm"] = {"scale": ones(L, d)}
+        if self._ffn_kind() == "mlp":
+            layers["mlp_norm"] = {"scale": ones(L, d)}
+            if cfg.mlp_type == "swiglu":
+                layers["mlp"] = {"gate": stacked_dense(d, ff), "up": stacked_dense(d, ff),
+                                 "down": stacked_dense(ff, d)}
+            else:
+                layers["mlp"] = {"up": stacked_dense(d, ff), "down": stacked_dense(ff, d)}
         params = {
             "embed": {"table": normal_(empty(cfg.padded_vocab, d), gen, 0.02)},
             "layers": layers,
@@ -115,13 +155,46 @@ class DecoderLM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = {"table": normal_(empty(cfg.padded_vocab, d), gen, 0.02)}
+        if cfg.num_meta_tokens:
+            params["meta"] = normal_(empty(cfg.num_meta_tokens, d), gen, 0.02)
         return params
+
+    def _init_ssm(self, gen, dev, stacked_dense) -> dict:
+        """``repro.models.ssm.ssm_init``, stacked over layers."""
+        cfg = self.cfg
+        L, d = cfg.num_layers, cfg.d_model
+        di, ns, nh = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
+        conv_dim = di + 2 * ns  # x, B, C share the depthwise conv (ngroups=1)
+        conv_w = torch.empty((L, cfg.ssm_conv, conv_dim), dtype=PARAM_DTYPE, device=dev)
+        for layer in range(L):
+            normal_(conv_w[layer], gen, 0.1)
+        dt_bias = torch.rand((L, nh), generator=gen, device=dev) * 3.0 - 4.0  # U(-4, -1)
+        return {
+            "in_proj": stacked_dense(d, 2 * di + 2 * ns + nh),  # [z | xBC | dt]
+            "conv_w": conv_w,
+            "conv_b": torch.zeros((L, conv_dim), dtype=PARAM_DTYPE, device=dev),
+            "a_log": torch.log(torch.linspace(1.0, 16.0, nh, device=dev))[None].repeat(L, 1),
+            "dt_bias": dt_bias,
+            "d_skip": torch.ones((L, nh), dtype=torch.float32, device=dev),
+            "out_norm": {"scale": torch.ones((L, di), dtype=PARAM_DTYPE, device=dev)},
+            "out_proj": stacked_dense(di, d),
+        }
 
     def _apply_mlp(self, p, x):
         if self.cfg.mlp_type == "swiglu":
             return swiglu(p["mlp"], x)
         up = dense(p["mlp"]["up"], x)
         return dense(p["mlp"]["down"], torch.nn.functional.gelu(up, approximate="tanh"))
+
+    def _mix(self, p, outs: dict):
+        """The token mixers' sum into the residual: the one branch, or the
+        hybrid's per-branch RMSNorm mean."""
+        if self.cfg.family != "hybrid":
+            (y,) = outs.values()
+            return y
+        eps = self.cfg.norm_eps
+        return 0.5 * (rmsnorm(p["attn_out_norm"], outs["attn"], eps)
+                      + rmsnorm(p["ssm_out_norm"], outs["ssm"], eps))
 
     def _logits(self, params, x):
         table = params.get("lm_head", params["embed"])["table"]
@@ -133,17 +206,36 @@ class DecoderLM:
     # ------------------------------------------------- full-seq forward
     def _sub_full(self, p, x, positions):
         cfg = self.cfg
-        h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
-        b, s, _ = h.shape
-        q = dense(p["attn"]["q"], h).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = dense(p["attn"]["k"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = dense(p["attn"]["v"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        a = flash_attention(q, k, v, causal=True)
-        x = x + dense(p["attn"]["o"], a.reshape(b, s, -1))
-        x = x + self._apply_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
-        return x, k, v
+        outs, caches = {}, {}
+        if cfg.has_attention:
+            h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+            b, s, _ = h.shape
+            q = dense(p["attn"]["q"], h).reshape(b, s, cfg.num_heads, cfg.head_dim)
+            k = dense(p["attn"]["k"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            v = dense(p["attn"]["v"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+            a = flash_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window,
+                                prefix_len=cfg.num_meta_tokens)
+            outs["attn"] = dense(p["attn"]["o"], a.reshape(b, s, -1))
+            caches["k"], caches["v"] = k, v
+        if cfg.has_ssm:
+            h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+            outs["ssm"], (caches["ssd"], caches["conv"]) = ssm_prefill(p["ssm"], h, cfg)
+        x = x + self._mix(p, outs)
+        if self._ffn_kind() == "mlp":
+            x = x + self._apply_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+        return x, caches
+
+    def _embed_inputs(self, params, tokens):
+        """Token embeddings with the meta-token prefix in front (hymba).
+        Returns (x, offset) where offset is where text starts."""
+        cfg = self.cfg
+        x = params["embed"]["table"][tokens]
+        if not cfg.num_meta_tokens:
+            return x, 0
+        meta = params["meta"][None].expand(x.shape[0], -1, -1).to(x.dtype)
+        return torch.cat([meta, x], dim=1), cfg.num_meta_tokens
 
     # ---------------------------------------------------------- prefill
     def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True):
@@ -154,66 +246,159 @@ class DecoderLM:
         if batch.get("vision_embeds") is not None:
             raise NotImplementedError("VLM vision_embeds are not ported yet (ROADMAP.md)")
         tokens = self._tokens(batch["tokens"])
-        b, s = tokens.shape
-        x = params["embed"]["table"][tokens]
-        positions = torch.arange(s, device=self.device)[None, :].expand(b, s)
-        ks, vs = [], []
+        b = tokens.shape[0]
+        x, _ = self._embed_inputs(params, tokens)
+        s_total = x.shape[1]
+        positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
+        per_layer = []
         for layer in range(self.cfg.num_layers):
-            x, k, v = self._sub_full(_layer(params["layers"], layer), x, positions)
-            ks.append(k)
-            vs.append(v)
+            x, caches = self._sub_full(_layer(params["layers"], layer), x, positions)
+            per_layer.append(caches)
+        caches = {key: torch.stack([c[key] for c in per_layer]) for key in per_layer[0]}
+        del per_layer
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self._logits(params, x[:, -1, :])
-        state = self._caches_to_state(torch.stack(ks), torch.stack(vs), b, s,
-                                      max_blocks_margin)
-        return logits, state
+        return logits, self._caches_to_state(caches, b, s_total, max_blocks_margin)
 
-    def _caches_to_state(self, k, v, b, s, margin) -> DecodeState:
-        """k, v [L, b, s, g, hd] -> per-sequence pages with ``margin`` empty
-        pages after the prompt's, identity block tables."""
+    def _caches_to_state(self, caches, b, s_total, margin) -> DecodeState:
+        """Per-layer prefill caches ([L, b, ...]) -> DecodeState: paged KV
+        with ``margin`` empty pages after the prompt's and identity block
+        tables; or, for sliding-window archs, a ring of ``window +
+        BLOCK_SIZE`` slots holding the newest tokens plus the meta KV; and
+        the SSM states as they are."""
+        cfg = self.cfg
         bs = self.BLOCK_SIZE
-        L, _, _, g, hd = k.shape
-        spb = -(-s // bs)
-        per_seq = spb + margin
-        k_pages = torch.zeros((L, b, per_seq * bs, g, hd), dtype=k.dtype, device=k.device)
-        v_pages = torch.zeros_like(k_pages)
-        k_pages[:, :, :s] = k
-        v_pages[:, :, :s] = v
-        tables = torch.arange(per_seq, dtype=torch.int32, device=k.device)
-        return DecodeState(
-            context_lens=torch.full((b,), s, dtype=torch.int32, device=k.device),
-            k_pages=k_pages.reshape(L, b, per_seq, bs, g, hd),
-            v_pages=v_pages.reshape(L, b, per_seq, bs, g, hd),
-            block_tables=tables[None, :].repeat(b, 1),
-        )
+        dev = self.device
+        state = DecodeState(
+            context_lens=torch.full((b,), s_total, dtype=torch.int32, device=dev))
+        if cfg.has_attention:
+            k, v = caches["k"], caches["v"]  # [L, b, s, g, hd]
+            L, _, _, g, hd = k.shape
+            if cfg.sliding_window:
+                m = cfg.num_meta_tokens
+                cap = cfg.sliding_window + bs
+                if m:
+                    state.meta_k, state.meta_v = k[:, :, :m], v[:, :, :m]
+                    k, v = k[:, :, m:], v[:, :, m:]
+                s = k.shape[2]
+                take = min(cap, s)
+                tail_pos = torch.arange(s - take, s, device=dev) + m  # absolute positions
+                slots = tail_pos % cap
+                state.ring_k = torch.zeros((L, b, cap, g, hd), dtype=k.dtype, device=dev)
+                state.ring_v = torch.zeros_like(state.ring_k)
+                state.ring_k[:, :, slots] = k[:, :, s - take:]
+                state.ring_v[:, :, slots] = v[:, :, s - take:]
+                state.ring_pos = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
+                state.ring_pos[:, slots] = tail_pos.to(torch.int32)
+            else:
+                s = k.shape[2]
+                per_seq = -(-s // bs) + margin
+                k_pages = torch.zeros((L, b, per_seq * bs, g, hd), dtype=k.dtype, device=dev)
+                v_pages = torch.zeros_like(k_pages)
+                k_pages[:, :, :s] = k
+                v_pages[:, :, :s] = v
+                tables = torch.arange(per_seq, dtype=torch.int32, device=dev)
+                state.k_pages = k_pages.reshape(L, b, per_seq, bs, g, hd)
+                state.v_pages = v_pages.reshape(L, b, per_seq, bs, g, hd)
+                state.block_tables = tables[None, :].repeat(b, 1)
+        if cfg.has_ssm:
+            state.ssd_state = caches["ssd"]    # [L, b, nh, hd, ns]
+            state.conv_state = caches["conv"]  # [L, b, k-1, c]
+        return state
 
     # ------------------------------------------------------ decode step
-    def _sub_decode(self, p, h, state: DecodeState, pages: KVPages):
+    def _attn_qkv(self, p, h, pos):
         cfg = self.cfg
         b, _ = h.shape
-        pos = state.context_lens
         hn = rmsnorm(p["attn_norm"], h, cfg.norm_eps)
         q = dense(p["attn"]["q"], hn).reshape(b, 1, cfg.num_heads, cfg.head_dim)
         k = dense(p["attn"]["k"], hn).reshape(b, 1, cfg.num_kv_heads, cfg.head_dim)
         v = dense(p["attn"]["v"], hn).reshape(b, 1, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, pos[:, None], cfg.rope_theta)[:, 0]
         k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
-        a, pages = paged_decode_with_write(q, k, v[:, 0], pages, state.block_tables,
-                                           state.context_lens)
-        h = h + dense(p["attn"]["o"], a.reshape(b, -1))
-        h = h + self._apply_mlp(p, rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
-        return h, pages
+        return q, k, v[:, 0]
+
+    def _sub_decode(self, p, h, state: DecodeState, layer: int, pages: KVPages | None):
+        """One layer of one decode step.  ``pages``: this layer's KV pages
+        (paged archs); ring slots are written in place; returns (h, pages,
+        (ssd, conv) or None)."""
+        cfg = self.cfg
+        b, _ = h.shape
+        outs = {}
+        ssm_state = None
+        if cfg.has_attention:
+            q, k, v = self._attn_qkv(p, h, state.context_lens)
+            if cfg.sliding_window:
+                a = self._ring_attention(q, k, v, state, layer)
+            else:
+                a, pages = paged_decode_with_write(q, k, v, pages, state.block_tables,
+                                                   state.context_lens)
+            outs["attn"] = dense(p["attn"]["o"], a.reshape(b, -1))
+        if cfg.has_ssm:
+            hn = rmsnorm(p["ssm_norm"], h, cfg.norm_eps)
+            outs["ssm"], ssm_state = ssm_step(
+                p["ssm"], hn, cfg, (state.ssd_state[layer], state.conv_state[layer]))
+        h = h + self._mix(p, outs)
+        if self._ffn_kind() == "mlp":
+            h = h + self._apply_mlp(p, rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
+        return h, pages, ssm_state
+
+    def _ring_attention(self, q, k_new, v_new, state: DecodeState, layer: int):
+        """Sliding-window decode over layer ``layer``'s ring (the new token
+        written into its slot in place; ``state.ring_pos`` already holds
+        its position) and the always-visible meta KV.  Plain torch."""
+        cfg = self.cfg
+        b = q.shape[0]
+        pos = state.context_lens
+        ring_k, ring_v = state.ring_k[layer], state.ring_v[layer]
+        rows = torch.arange(b, device=q.device)
+        slot = (pos % ring_k.shape[1]).long()
+        ring_k[rows, slot] = k_new.to(ring_k.dtype)
+        ring_v[rows, slot] = v_new.to(ring_v.dtype)
+
+        ks, vs, ps = ring_k, ring_v, state.ring_pos
+        slot_valid = (ps >= 0) & (ps <= pos[:, None]) & (ps > pos[:, None] - cfg.sliding_window)
+        if state.meta_k is not None:
+            ks = torch.cat([state.meta_k[layer], ks], dim=1)
+            vs = torch.cat([state.meta_v[layer], vs], dim=1)
+            meta_valid = torch.ones((b, state.meta_k.shape[2]), dtype=torch.bool,
+                                    device=q.device)
+            slot_valid = torch.cat([meta_valid, slot_valid], dim=1)
+        g = ks.shape[2]
+        hq = q.reshape(b, g, cfg.num_heads // g, cfg.head_dim)
+        scores = torch.einsum("bgqd,bsgd->bgqs", hq, ks).float() * (cfg.head_dim ** -0.5)
+        scores = scores.masked_fill(~slot_valid[:, None, None, :], float("-inf"))
+        w = torch.softmax(scores, dim=-1).to(vs.dtype)
+        return torch.einsum("bgqs,bsgd->bgqd", w, vs).reshape(b, cfg.num_heads, cfg.head_dim)
 
     def decode_step(self, params, state: DecodeState, tokens):
         """One token for every sequence.  tokens: [b] -> (logits [b, V],
-        new DecodeState sharing ``state``'s pages, updated in place)."""
+        new DecodeState sharing ``state``'s pages and rings, updated in
+        place, with fresh SSM states)."""
+        cfg = self.cfg
         x = params["embed"]["table"][self._tokens(tokens)]
-        for layer in range(self.cfg.num_layers):
-            pages = KVPages(state.k_pages[layer], state.v_pages[layer])
-            x, _ = self._sub_decode(_layer(params["layers"], layer), x, state, pages)
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        new = dataclasses.replace(state)
+        if state.ring_pos is not None:  # every layer writes the same slot and position
+            pos = state.context_lens
+            rows = torch.arange(pos.shape[0], device=pos.device)
+            new.ring_pos = state.ring_pos.clone()
+            new.ring_pos[rows, (pos % new.ring_pos.shape[1]).long()] = pos
+        ssd, conv = [], []
+        for layer in range(cfg.num_layers):
+            pages = None
+            if state.k_pages is not None:
+                pages = KVPages(state.k_pages[layer], state.v_pages[layer])
+            x, _, ssm_state = self._sub_decode(_layer(params["layers"], layer), x, new,
+                                               layer, pages)
+            if ssm_state is not None:
+                ssd.append(ssm_state[0])
+                conv.append(ssm_state[1])
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = self._logits(params, x)
-        return logits, dataclasses.replace(state, context_lens=state.context_lens + 1)
+        if ssd:
+            new.ssd_state, new.conv_state = torch.stack(ssd), torch.stack(conv)
+        new.context_lens = state.context_lens + 1
+        return logits, new
 
     def decode_step_layerwise(self, params, state: DecodeState, tokens, fetch_layer):
         """One decode step where layer ``l``'s KV pages come from
@@ -221,15 +406,22 @@ class DecoderLM:
         g, hd]) right before layer ``l``'s attention — the compute half of
         the layer-streamed pull.  Same per-layer math as ``decode_step``,
         so logits and pages are identical to the full-state step.  The
-        returned state stacks the fetched pages (with the new token)."""
+        returned state stacks the fetched pages (with the new token).
+        Paged-KV archs only, as in the reference."""
+        cfg = self.cfg
+        if not cfg.has_attention or cfg.sliding_window or cfg.has_ssm:
+            raise NotImplementedError(
+                "layerwise decode covers paged-KV attention archs; ring/SSM "
+                "caches have no layer-streamed pull to consume")
         x = params["embed"]["table"][self._tokens(tokens)]
         new_k, new_v = [], []
-        for layer in range(self.cfg.num_layers):
+        for layer in range(cfg.num_layers):
             pages = KVPages(*fetch_layer(layer))
-            x, pages = self._sub_decode(_layer(params["layers"], layer), x, state, pages)
+            x, pages, _ = self._sub_decode(_layer(params["layers"], layer), x, state, layer,
+                                           pages)
             new_k.append(pages.k_pages)
             new_v.append(pages.v_pages)
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = self._logits(params, x)
         return logits, dataclasses.replace(
             state, k_pages=torch.stack(new_k), v_pages=torch.stack(new_v),

@@ -8,8 +8,10 @@ reference, and each layer exports the same ``TensorDesc`` field for
 field, so descriptor-computed reads address the same bytes.  The
 transfer engine's kv_pull kernel moves pages of this slab directly.
 
-``SlotCache`` (SSM state slots) keeps the reference's structure over a
-host slab; it is off the dense serving path.
+``SlotCache`` (SSM state slots) keeps the reference's structure and
+descriptors over a ``torch.uint8`` slab on its own device, registered
+with one slot as the page, so a state pull lands through one ``kv_pull``
+launch per tick.
 """
 from __future__ import annotations
 
@@ -157,6 +159,7 @@ class SlotCache:
         state_elems: int,
         dtype: torch.dtype = DEFAULT_DTYPE,
         base_address: int = 0x7F20000000,
+        device: str | torch.device = "cpu",
     ) -> None:
         self.worker_id = worker_id
         self.num_layers = num_layers
@@ -165,8 +168,9 @@ class SlotCache:
         self.dtype = dtype
         self.itemsize = _itemsize(dtype)
         self.base_address = base_address
+        self.device = torch.device(device)
         self._slab = torch.zeros(num_layers * num_slots * state_elems * self.itemsize,
-                                 dtype=torch.uint8)
+                                 dtype=torch.uint8, device=self.device)
         self._view = self._slab.view(dtype).view(num_layers, num_slots, state_elems)
 
     def desc(self, layer: int) -> TensorDesc:
@@ -189,7 +193,8 @@ class SlotCache:
                             page_nbytes=self.state_elems * self.itemsize)
 
     def write_slot(self, layer: int, slot: int, state) -> None:
-        self._view[layer, slot] = torch.as_tensor(state).reshape(-1).to(self.dtype)
+        self._view[layer, slot] = torch.as_tensor(state).reshape(-1).to(self.device,
+                                                                         self.dtype)
 
     def read_slot(self, layer: int, slot: int) -> torch.Tensor:
         return self._view[layer, slot].clone()

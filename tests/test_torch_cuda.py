@@ -6,7 +6,8 @@ machine with an H100 and nvcc:
 
 (``--noconftest``: the suite's conftest imports JAX, which that machine
 lacks; this file imports only torch and the port.)  Tolerances as in
-tests/test_kernels.py: f32 2e-4, bf16 2e-2; the copies are exact.
+tests/test_kernels.py: f32 2e-4, bf16 2e-2, ssd_scan f32 1e-3; the
+copies are exact.
 """
 import pytest
 import torch
@@ -17,6 +18,8 @@ from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
 from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
@@ -96,3 +99,87 @@ def test_kv_pull_dequant_exact(gen, dtype):
     sc = torch.tensor([0.013, 1.0, 0.5, 0.0021], device="cuda")
     assert torch.equal(kv_pull_dequant(src, dst.clone(), sid, did, sc),
                        kv_pull_dequant_ref(src, dst.clone(), sid, did, sc))
+
+
+def ssd_inputs(gen, b, s, nh, hd, ns, dtype=torch.float32, dt_fill=None):
+    x = (torch.randn(b, s, nh, hd, generator=gen, device="cuda") * 0.5).to(dtype)
+    dt = (torch.randn(b, s, nh, generator=gen, device="cuda").abs() * 0.1 + 0.01
+          if dt_fill is None else torch.full((b, s, nh), dt_fill, device="cuda"))
+    a = -(torch.randn(nh, generator=gen, device="cuda").abs() + 0.5)
+    B = torch.randn(b, s, ns, generator=gen, device="cuda") * 0.3
+    C = torch.randn(b, s, ns, generator=gen, device="cuda") * 0.3
+    return x, dt, a, B, C, torch.randn(nh, generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,hd,ns,chunk", [
+    (2, 128, 4, 32, 16, 32), (2, 64, 2, 64, 128, 64), (2, 96, 50, 64, 16, 32),  # JAX grid
+    (1, 257, 48, 64, 128, 128), (1, 130, 48, 64, 128, 128),  # mamba2-780m, ragged
+    (1, 224, 50, 64, 16, 128), (2, 45, 3, 40, 8, 16),  # hymba-1.5b; ragged hd tile
+])
+def test_ssd_scan(gen, b, s, nh, hd, ns, chunk):
+    args = ssd_inputs(gen, b, s, nh, hd, ns)
+    y, st = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
+    torch.testing.assert_close(y, y_ref, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt_fill", [1e-3, 5.0])
+def test_ssd_scan_decay_extremes_finite(gen, dt_fill):
+    x, dt, _, B, C, _ = ssd_inputs(gen, 1, 64, 2, 16, 8, dt_fill=dt_fill)
+    a = torch.tensor([-0.01, -8.0], device="cuda")
+    d_skip = torch.zeros(2, device="cuda")
+    y, st = ssd_scan(x, dt, a, B, C, d_skip, chunk=16)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_ref, st_ref = ssd_scan_ref(x, dt, a, B, C, d_skip, chunk=16)
+    torch.testing.assert_close(y, y_ref, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_x(gen):
+    args = ssd_inputs(gen, 1, 257, 48, 64, 128, dtype=torch.bfloat16)
+    y, st = ssd_scan(*args)
+    y_ref, st_ref = ssd_scan_ref(*args)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_state_pull_lands_through_kv_pull(gen):
+    """Two f32 SlotCaches on the card: pull_state lands every layer's slot
+    exactly, through kv_pull launches."""
+    from repro_torch.core.connection import (
+        ChipInfo, ConnectionManager, DescriptorRegistry, WorkerInfo)
+    from repro_torch.core.pull_push import pull_state
+    from repro_torch.core.transfer_engine import TransferEngine
+    from repro_torch.serving.kv_cache import SlotCache
+    from repro_torch.serving.request import Request
+
+    kw = dict(num_layers=4, num_slots=3, state_elems=2500, dtype=torch.float32, device="cuda")
+    pre = SlotCache("p0", base_address=0x3000_0000, **kw)
+    dec = SlotCache("d0", base_address=0x4000_0000, **kw)
+    eng = TransferEngine()
+    eng.register_memory(pre.memory_region())
+    eng.register_memory(dec.memory_region())
+    reg = DescriptorRegistry("p0")
+    for d in pre.descriptors():
+        reg.register(d)
+
+    def info(wid, role):
+        return WorkerInfo(wid, role, "10.0.0.1", (ChipInfo(0, f"ici://{wid}/0"),))
+
+    conn = ConnectionManager(info("d0", "decode")).connect(info("p0", "prefill"), reg)
+    for layer in range(4):
+        pre.write_slot(layer, 1, torch.randn(2500, generator=gen, device="cuda"))
+    before = kv_pull.launches
+    stats = pull_state(Request("r1", prompt_len=8, max_new_tokens=1), conn=conn, engine=eng,
+                       decode_cache=dec, remote_slot=1, local_slot=2)
+    torch.cuda.synchronize()
+    assert stats.txns_submitted == 4 and kv_pull.launches > before
+    for layer in range(4):
+        assert torch.equal(dec.read_slot(layer, 2), pre.read_slot(layer, 1))

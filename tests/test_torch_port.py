@@ -78,10 +78,21 @@ def _no_cuda(monkeypatch):
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.registry import build_model
     from repro_torch.serving.disagg import DisaggService
 
     _no_cuda(monkeypatch)
+    for arch in ("mamba2-780m", "hymba-1.5b"):  # the steps run on their model's device
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_prefill_step(build_model(get_smoke_config(arch)))
+        ssm_model = build_model(get_smoke_config(arch), device="cpu")
+        ssm_params = ssm_model.init_params(0)
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+        tok, state = make_prefill_step(ssm_model)(ssm_params, batch)
+        assert tok.device.type == state.ssd_state.device.type == "cpu"
+        tok, _ = make_serve_step(ssm_model)(ssm_params, state, tok)
+        assert tok.dtype == torch.int32
     cfg = get_smoke_config("deepseek-67b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
@@ -132,7 +143,7 @@ def test_kernels_do_not_build_at_import():
     from repro_torch.kernels import build
 
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "flash_prefill.cu", "kv_pull.cu", "paged_attention.cu"]
+        "flash_prefill.cu", "kv_pull.cu", "paged_attention.cu", "ssd_scan.cu"]
 
 
 def test_wrappers_refuse_other_devices_and_mixed_placement():
