@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -65,6 +66,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12             # H100 SXM f32 without tensor cores
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the long bf16 cases also hold ||out - ref|| / ||ref|| under this: their
+# outputs (about 0.02 over 4096 keys) are near the bf16 atol, while bf16
+# rounding in the kernel and the plain version leaves about 4e-3 and a
+# partition of 16 left out about 0.27
+REL_NORM_BF16 = 1e-2
 SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}   # the JAX package's own for ssd_scan
 CONSISTENCY_TOL = 1e-3             # f32 prefill(p) + decode(t) vs prefill(p + t), logits
 YI = dict(h=32, g=4, d=128, bs=32)
@@ -73,6 +79,9 @@ HYMBA = dict(h=25, g=5, d=64, nh=50, hd=64, ns=16, window=1024, meta=128)
 PROMPTS = (96, 130, 257)
 HYMBA_PROMPTS = (96, 130, 1200)
 MAX_NEW = 8
+BF16_HEAD_DIMS = (32, 64, 128)     # flash_prefill's tensor-core kernels
+LONG_PROMPT = 4096                 # the longer rows of phase 5
+LONG_CTX = 4096
 
 
 def log(msg: str) -> None:
@@ -95,12 +104,37 @@ def phase_build():
     build.library()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f}s")
     for line in compile_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(w in line for w in ("entry function", "registers", "spill")) \
+                or line.startswith("=="):
             log(f"  {line.strip()}")
+    tensor_core_sass(path, build)
+
+
+def tensor_core_sass(path, build):
+    """Count the tensor-core instructions (HMMA, HGMMA) in each flash_prefill
+    kernel's SASS (``cuobjdump -sass`` of the built library); fail unless
+    every bf16 kernel has some and the f32 kernel has none."""
+    import pathlib as _pathlib
+
+    tool = _pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(path)], check=True, capture_output=True,
+                          text=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = re.search(r"flash_prefill_(bf16|f32)_kernel(ILi\d+E)?", chunk.split(None, 1)[0])
+        if name:
+            counts[name.group(0)] = sum(1 for ln in chunk.splitlines()
+                                        if "HMMA" in ln or "HGMMA" in ln)
+    bf16 = {n: c for n, c in counts.items() if "bf16" in n}
+    f32 = {n: c for n, c in counts.items() if "f32" in n}
+    log(f"phase 1: tensor-core instructions (HMMA/HGMMA) in flash_prefill SASS: {counts}")
+    if len(bf16) != len(BF16_HEAD_DIMS) or not all(bf16.values()) or any(f32.values()) \
+            or not f32:
+        raise AssertionError(f"flash_prefill SASS: bf16 kernels {bf16}, f32 kernel {f32}")
 
 
 # ------------------------------------------------------------ phase 2
-def close(out, ref, tol, what):
+def close(out, ref, tol, what, rel_norm=None):
     import torch
 
     out32, ref32 = out.float(), ref.float()
@@ -109,16 +143,21 @@ def close(out, ref, tol, what):
         raise AssertionError(f"{what}: non-finite output")
     if not torch.allclose(out32, ref32, rtol=tol, atol=tol):
         raise AssertionError(f"{what}: max |err| {err} above tolerance {tol}")
+    if rel_norm is not None:
+        rel = float((out32 - ref32).norm() / ref32.norm())
+        log(f"phase 2: {what}: ||err|| / ||ref|| {rel:.3e} (limit {rel_norm})")
+        if not rel <= rel_norm:
+            raise AssertionError(f"{what}: ||err|| / ||ref|| {rel} above {rel_norm}")
     return err
 
 
 def check_paged_attention(gen, dev):
     import torch
 
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    def case(b, h, g, d, per, bs, dtype, tables=None, ctx=None):
+    def case(b, h, g, d, per, bs, dtype, tables=None, ctx=None, rel_norm=None):
         q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
         kp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(dtype)
         vp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(dtype)
@@ -131,19 +170,41 @@ def check_paged_attention(gen, dev):
         torch.cuda.synchronize()
         return close(out, paged_attention_ref(q, kp, vp, tables, ctx),
                      TOL[str(dtype).split(".")[1]],
-                     f"paged_attention b={b} h={h} g={g} d={d} {dtype}")
+                     f"paged_attention b={b} h={h} g={g} d={d} {dtype}", rel_norm)
 
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 4, 2, 64, 4, 32), (3, 8, 1, 128, 3, 32), (1, 8, 8, 64, 5, 16)):
+        for shape in ((2, 4, 2, 64, 4, 32), (3, 8, 1, 128, 3, 32), (1, 8, 8, 64, 5, 16),
+                      (3, 8, 2, 8, 6, 16), (3, 8, 2, 16, 6, 16)):  # every head dim
             case(*shape, dtype)
     case(1, 4, 2, 32, 4, 16, torch.float32,
          tables=torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=dev),
          ctx=torch.tensor([64], dtype=torch.int32, device=dev))
     case(2, 2, 1, 32, 2, 16, torch.float32,
          ctx=torch.ones(2, dtype=torch.int32, device=dev))
+    # split-KV: b = 8 leaves several pages per partition; ctx = 1, on a
+    # partition edge and one past it (empty trailing partitions everywhere)
+    pages, n_part = partitions(8, YI["g"], YI["h"] // YI["g"], 40, sm_count(dev))
+    edge = pages * 16
+    for dtype in (torch.float32, torch.bfloat16):
+        for ctx in ([1] * 8, [edge, 2 * edge, edge + 1, 1] * 2):
+            case(8, YI["h"], YI["g"], YI["d"], 40, 16, dtype,
+                 ctx=torch.tensor(ctx, dtype=torch.int32, device=dev))
+    log(f"phase 2: paged_attention split at b = 8, 40 pages of 16: grid "
+        f"{paged_attention.last_grid} as launched, {n_part} partitions of {pages} pages; "
+        f"ctx 1, {edge}, {2 * edge}, {edge + 1}")
     yi_ctx = torch.tensor([p + MAX_NEW for p in PROMPTS], dtype=torch.int32, device=dev)
     case(3, YI["h"], YI["g"], YI["d"], 11, YI["bs"], torch.float32, ctx=yi_ctx)
+    long_ctx = torch.full((8,), LONG_CTX, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        case(8, YI["h"], YI["g"], YI["d"], LONG_CTX // YI["bs"], YI["bs"], dtype,
+             ctx=long_ctx, rel_norm=REL_NORM_BF16 if dtype == torch.bfloat16 else None)
     return case(3, YI["h"], YI["g"], YI["d"], 11, YI["bs"], torch.bfloat16, ctx=yi_ctx)
+
+
+def sm_count(dev):
+    import torch
+
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def check_flash_prefill(gen, dev):
@@ -152,14 +213,14 @@ def check_flash_prefill(gen, dev):
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import dense_ref
 
-    def case(b, s, h, g, d, dtype, **kw):
+    def case(b, s, h, g, d, dtype, rel_norm=None, **kw):
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, s, g, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, s, g, d, generator=gen, device=dev).to(dtype)
         out = flash_prefill(q, k, v, **kw)
         torch.cuda.synchronize()
         return close(out, dense_ref(q, k, v, **kw), TOL[str(dtype).split(".")[1]],
-                     f"flash_prefill s={s} h={h} g={g} d={d} {dtype} {kw}")
+                     f"flash_prefill s={s} h={h} g={g} d={d} {dtype} {kw}", rel_norm)
 
     for dtype in (torch.float32, torch.bfloat16):
         for s, h, g, d in ((256, 4, 2, 64), (128, 8, 8, 32), (256, 6, 1, 128)):
@@ -167,6 +228,11 @@ def check_flash_prefill(gen, dev):
     case(1, 256, 4, 2, 32, torch.float32, causal=True, sliding_window=64, prefix_len=16)
     case(1, 128, 4, 4, 32, torch.float32, causal=False)
     case(1, 130, 4, 2, 64, torch.float32, causal=True)  # ragged
+    for d in BF16_HEAD_DIMS:  # every tensor-core kernel; one row, ragged rows
+        for s in (1, 130, 257):
+            case(2, s, 8, 2, d, torch.bfloat16, causal=True)
+    case(1, LONG_PROMPT, YI["h"], YI["g"], YI["d"], torch.bfloat16, rel_norm=REL_NORM_BF16,
+         causal=True)
     err = 0.0
     for s in PROMPTS:
         case(1, s, YI["h"], YI["g"], YI["d"], torch.float32, causal=True)
@@ -827,6 +893,35 @@ def phase_hymba():
 
 # ------------------------------------------------------------ phase 5
 def time_ms(fn, iters=50, warmup=3):
+    """Device time of one call: ``iters`` calls captured in one CUDA graph,
+    replayed between two CUDA events, so that the host's cost of a call
+    (Python, argument checks, the launch itself) does not count."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def call_ms(fn, iters=50, warmup=3):
+    """Time of one call issued from Python, back to back: the device time or
+    the host's cost of a call, whichever is larger.  The plain versions are
+    timed so (some copy host values to the card, which a CUDA graph cannot
+    capture), and each kernel is too, beside its device time."""
     import torch
 
     for _ in range(warmup):
@@ -872,31 +967,24 @@ def ssd_time_row(gen, dev, s, nh, hd, ns, what):
         + nh * hd * ns * 4
     return dict(
         ms=time_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
-        plain_ms=time_ms(lambda: ssd_scan_ref(x, dt, a, B, C, d_skip)),
+        call_ms=call_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
+        plain_ms=call_ms(lambda: ssd_scan_ref(x, dt, a, B, C, d_skip)),
         library_ms=None,  # no single PyTorch call computes the SSD scan
         bound=bound_ms(nbytes, ssd_flops(1, s, nh, hd, ns, KERNEL_CHUNK), PEAK_F32_FLOPS),
         shape=f"{what}: b=1 s={s} nh={nh} hd={hd} ns={ns} f32, chunk {KERNEL_CHUNK}; "
               f"bound at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32 (no tensor cores)")
 
 
-def phase_times(gen, dev):
+def paged_time_row(gen, dev, b, per, ctx_list, what):
+    """paged_attention at Yi-9B widths over ``ctx_list`` tokens, bf16."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_prefill.ops import flash_prefill
-    from repro_torch.kernels.flash_prefill.ref import dense_ref
-    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
-    from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     h, g, d, bs = YI["h"], YI["g"], YI["d"], YI["bs"]
     bf = torch.bfloat16
-    rows = {}
-
-    # paged_attention: the batched decode step over the three prompts
-    b, per = 3, 11
-    ctx_list = [p + MAX_NEW for p in PROMPTS]
     q = torch.randn(b, h, d, generator=gen, device=dev).to(bf)
     kp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(bf)
     vp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(bf)
@@ -909,17 +997,35 @@ def phase_times(gen, dev):
     mask = (torch.arange(t_max, device=dev)[None] < ctx[:, None])[:, None, None, :]
     qf = q[:, :, None, :]
     kv_read = sum(ctx_list) * g * d * 2 * 2
-    rows["paged_attention"] = dict(
+    pages, _ = partitions(b, g, h // g, per, sm_count(dev))
+    paged_attention.last_grid = None
+    row = dict(
         ms=time_ms(lambda: paged_attention(q, kp, vp, tables, ctx)),
-        plain_ms=time_ms(lambda: paged_attention_ref(q, kp, vp, tables, ctx)),
+        call_ms=call_ms(lambda: paged_attention(q, kp, vp, tables, ctx)),
+        plain_ms=call_ms(lambda: paged_attention_ref(q, kp, vp, tables, ctx)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qf, kf, vf, attn_mask=mask)),
         bound=bound_ms(kv_read + 2 * q.numel() * 2 + tables.numel() * 4 + b * 4,
-                       4 * h * d * sum(ctx_list)),
-        shape=f"b={b} h={h} g={g} d={d} bs={bs} ctx={ctx_list} bf16")
+                       4 * h * d * sum(ctx_list)))
+    grid = paged_attention.last_grid  # as the wrapper launched it in the timed calls
+    row["grid"] = list(grid)
+    row["blocks"] = grid[0] * grid[1] * grid[2]
+    row["shape"] = (f"{what}: b={b} h={h} g={g} d={d} bs={bs} ctx={ctx_list} bf16; grid "
+                    f"{grid[0]} x {grid[1]} x {grid[2]} partitions of {pages} pages = "
+                    f"{row['blocks']} blocks")
+    return row
 
-    # flash_prefill: the longest prompt's prefill attention, one layer
-    s = max(PROMPTS)
+
+def prefill_time_row(gen, dev, s, what, plain_iters=50):
+    """flash_prefill at Yi-9B widths, one layer's causal prefill of s tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import dense_ref
+
+    h, g, d = YI["h"], YI["g"], YI["d"]
+    bf = torch.bfloat16
     qp = torch.randn(1, s, h, d, generator=gen, device=dev).to(bf)
     kk = torch.randn(1, s, g, d, generator=gen, device=dev).to(bf)
     vv = torch.randn(1, s, g, d, generator=gen, device=dev).to(bf)
@@ -927,13 +1033,45 @@ def phase_times(gen, dev):
     ks = kk.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
     vs = vv.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
     visible = s * (s + 1) // 2
-    rows["flash_prefill"] = dict(
+    row = dict(
         ms=time_ms(lambda: flash_prefill(qp, kk, vv, causal=True)),
-        plain_ms=time_ms(lambda: dense_ref(qp, kk, vv, causal=True)),
+        call_ms=call_ms(lambda: flash_prefill(qp, kk, vv, causal=True)),
+        plain_ms=call_ms(lambda: dense_ref(qp, kk, vv, causal=True), iters=plain_iters,
+                         warmup=min(3, plain_iters)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True)),
         bound=bound_ms((2 * qp.numel() + 2 * kk.numel()) * 2, 4 * h * d * visible),
-        shape=f"b=1 s={s} h={h} g={g} d={d} causal bf16")
+        shape=f"{what}: b=1 s={s} h={h} g={g} d={d} causal bf16"
+              + (f"; plain version timed over {plain_iters} calls" if plain_iters != 50 else ""))
+    row["vs_library"] = row["ms"] / row["library_ms"]
+    return row
+
+
+def phase_times(gen, dev):
+    rows = {}
+    # paged_attention: the batched decode step over the three prompts
+    rows["paged_attention"] = paged_time_row(gen, dev, 3, 11, [p + MAX_NEW for p in PROMPTS],
+                                             "yi-9b decode at b = 3")
+    if rows["paged_attention"]["blocks"] < 96:
+        raise AssertionError(f"paged_attention at yi-9b b = 3 launched "
+                             f"{rows['paged_attention']['grid']}: under 96 blocks")
+    rows["paged_attention"]["also"] = [paged_time_row(
+        gen, dev, 8, LONG_CTX // YI["bs"], [LONG_CTX] * 8, "long context")]
+    # flash_prefill: the longest prompt's prefill attention, one layer
+    rows["flash_prefill"] = prefill_time_row(gen, dev, max(PROMPTS), "yi-9b prefill")
+    rows["flash_prefill"]["also"] = [prefill_time_row(gen, dev, LONG_PROMPT, "long prompt",
+                                                      plain_iters=5)]
+    return rows | other_time_rows(gen, dev)
+
+
+def other_time_rows(gen, dev):
+    import torch
+
+    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
+    from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
+
+    bf = torch.bfloat16
+    rows = {}
 
     # kv_pull: one 257-token request's pages, uint8 slab pages of 32 KiB
     src, dst, sids, dids = yi_pull_inputs(gen, dev)
@@ -941,7 +1079,8 @@ def phase_times(gen, dev):
     n, page = sids.shape[0], src.shape[1]
     rows["kv_pull"] = dict(
         ms=time_ms(lambda: kv_pull(src, dst, sids, dids)),
-        plain_ms=time_ms(lambda: kv_pull_ref(src, dst, sids, dids)),
+        call_ms=call_ms(lambda: kv_pull(src, dst, sids, dids)),
+        plain_ms=call_ms(lambda: kv_pull_ref(src, dst, sids, dids)),
         library_ms=time_ms(lambda: dst.index_copy_(0, dl, src.index_select(0, sl))),
         bound=bound_ms(2 * n * page + 2 * n * 4, 0),
         shape=f"{n} pages x {page} B (9 blocks x 48 layers x K,V)")
@@ -953,7 +1092,8 @@ def phase_times(gen, dev):
     elems = src.shape[1]
     rows["kv_pull_dequant"] = dict(
         ms=time_ms(lambda: kv_pull_dequant(src, dst, sids, dids, scales)),
-        plain_ms=time_ms(lambda: kv_pull_dequant_ref(src, dst, sids, dids, scales)),
+        call_ms=call_ms(lambda: kv_pull_dequant(src, dst, sids, dids, scales)),
+        plain_ms=call_ms(lambda: kv_pull_dequant_ref(src, dst, sids, dids, scales)),
         library_ms=time_ms(lambda: dst.index_copy_(
             0, dl, (src.float() * scales[:, None]).to(bf))),
         bound=bound_ms(n * elems * (1 + 2) + n * 12, n * elems),
@@ -990,8 +1130,10 @@ def fmt_ms(x):
 def timing(row):
     """A phase-5 row's numbers under the keys of the kernels line."""
     bms, by = row["bound"]
+    extra = {k: row[k] for k in ("vs_library", "grid", "blocks") if k in row}
+    extra["call_ms"] = row["call_ms"]
     return {"ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
-            "library_ms": row["library_ms"], "shape": row["shape"]}
+            "library_ms": row["library_ms"], "shape": row["shape"], **extra}
 
 
 def main() -> int:
@@ -1012,6 +1154,7 @@ def main() -> int:
     log(f"GPU: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     phase_build()
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {
         "paged_attention": check_paged_attention(gen, dev),
@@ -1021,7 +1164,8 @@ def main() -> int:
         "ssd_scan": check_ssd_scan(gen, dev),
     }
     log(f"phase 2: every kernel matches its plain version; max |err| at full width "
-        f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}")
+        f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}; "
+        f"{time.perf_counter() - t0:.1f}s")
 
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
@@ -1038,22 +1182,28 @@ def main() -> int:
     serve_counts, per_request = phase_serve(model, params, prompts, refs)
     del params, model
     torch.cuda.empty_cache()
+    log(f"phases 3-4: {time.perf_counter() - t0:.1f}s with the weights and references")
 
+    t0 = time.perf_counter()
     mamba_counts, mamba_per_request, pulled = phase_mamba2(dev)
     torch.cuda.empty_cache()
+    log(f"phase 6: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     hymba_counts = phase_hymba()
     torch.cuda.empty_cache()
+    log(f"phase 7: {time.perf_counter() - t0:.1f}s")
 
+    t0 = time.perf_counter()
     rows = phase_times(gen, dev)
+    log(f"phase 5: timed in {time.perf_counter() - t0:.1f}s")
     kernels = []
     for name, row in rows.items():
         src, replaces = SOURCES[name]
-        extra = {}
+        extra = {"also": [timing(r) for r in row["also"]]} if "also" in row else {}
         if name == "ssd_scan":
             launches, run = mamba_counts[name], "phase 6: mamba2-780m disaggregated"
             per = mamba_per_request[name]
-            extra = {"launches_hymba": hymba_counts[name], "bytes_pulled_per_request": pulled,
-                     "also": [timing(r) for r in row["also"]]}
+            extra |= {"launches_hymba": hymba_counts[name], "bytes_pulled_per_request": pulled}
         else:
             quantized = name == "kv_pull_dequant"
             launches = serve_counts[quantized][name]
@@ -1064,9 +1214,11 @@ def main() -> int:
             "launches": launches, "launches_run": run, "launches_per_request": per,
             "max_abs_err": errs[name], **timing(row), **extra})
         for r in [timing(row)] + extra.get("also", []):
-            log(f"phase 5: {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
-                f"{r['bound_ms']:.5f} ms by {r['bound_by']}")
+            log(f"phase 5: {name} [{r['shape']}]: {r['ms']:.4f} ms on the device "
+                f"({r['call_ms']:.4f} ms a call from Python), plain {r['plain_ms']:.4f} ms, "
+                f"library {fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.5f} ms by "
+                f"{r['bound_by']}" + (f"; {r['vs_library']:.2f}x the library call"
+                                      if "vs_library" in r else ""))
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

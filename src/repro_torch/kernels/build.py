@@ -20,7 +20,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "build", "check", "on_cuda", "stream_ptr", "CSRC", "BUILD_DIR"]
+__all__ = ["library", "build", "check", "check_design", "on_cuda", "stream_ptr", "CSRC",
+           "BUILD_DIR"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -33,7 +34,10 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 SIGNATURES = {
-    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, ctypes.POINTER(_I), _P],
+    "paged_attention_design": [ctypes.POINTER(_I), _I],
+    "flash_prefill_design": [ctypes.POINTER(_I), _I],
     "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "kv_pull_launch": [_P, _P, _P, _P, _I, _I64, _P],
     "kv_pull_dequant_launch": [_P, _P, _P, _P, _P, _I, _I64, _I, _P],
@@ -117,6 +121,28 @@ def check(err: int, name: str) -> None:
     never runs, and a later synchronize would not report it)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+_DESIGN_CHECKED: set[str] = set()
+
+
+def check_design(name: str, expected: dict[str, int], lib=None) -> None:
+    """Hold a wrapper's model of its kernel (the constants its partition or
+    tile choice and its CPU tests read) against the values the compiled
+    kernel reports through ``<name>_design``, in ``expected``'s order.
+    Raise on any difference, so that a constant changed on one side only
+    stops the first launch instead of launching a grid the wrapper did not
+    plan.  Checked once per kernel and process."""
+    if name in _DESIGN_CHECKED:
+        return
+    lib = library() if lib is None else lib
+    buf = (ctypes.c_int * len(expected))()
+    n = getattr(lib, f"{name}_design")(buf, len(expected))
+    got = dict(zip(expected, buf))
+    if n != len(expected) or got != expected:
+        raise RuntimeError(f"{name}: the wrapper models {expected}, the compiled kernel "
+                           f"reports {got} ({n} values)")
+    _DESIGN_CHECKED.add(name)
 
 
 def on_cuda(name: str, *tensors) -> bool:

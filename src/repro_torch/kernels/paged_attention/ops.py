@@ -1,15 +1,48 @@
 """Paged decode attention: the CUDA kernel on CUDA tensors
-(``csrc/paged_attention.cu``), the plain version on CPU tensors."""
+(``csrc/paged_attention.cu``, split over the context: one block per
+kv-head, sequence and partition of pages, then a combine), the plain
+version on CPU tensors."""
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-__all__ = ["paged_attention"]
+__all__ = ["paged_attention", "partitions"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's d: 8 elements per lane, d / 8 lanes per key
+# The kernel's design as this module models it; ``paged_attention_design``
+# in the compiled kernel must report the same before the first launch.
+THREADS = 128                # per block; 128 / (d / 8) streams of lanes per block
+HEADS_PER_BLOCK = 8          # query heads sharing a block's K/V loads
+KEY_BATCH = {torch.float32: 2, torch.bfloat16: 4}  # keys a stream loads at once
+MAX_PART_PAGES = 1024        # pages per partition (the kernel copies their table entries)
+DESIGN = {"threads": THREADS, "heads_per_block": HEADS_PER_BLOCK,
+          "key_batch_f32": KEY_BATCH[torch.float32],
+          "key_batch_bf16": KEY_BATCH[torch.bfloat16], "max_part_pages": MAX_PART_PAGES}
+BLOCKS_PER_SM = 4            # the grid the partition size aims at
+
+
+def partitions(b: int, g: int, qpg: int, per_seq: int, sm_count: int) -> tuple[int, int]:
+    """(pages per partition, partitions per sequence) of the split-KV grid
+    (g x ceil(qpg / 8), b, partitions): the fewest pages per partition
+    that keep the grid within about BLOCKS_PER_SM blocks per SM, at most
+    MAX_PART_PAGES.  The contexts are on the card, so the choice reads
+    only the page count."""
+    head_blocks = g * -(-qpg // HEADS_PER_BLOCK)
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // (b * head_blocks)))
+    pages = min(-(-per_seq // min(per_seq, want)), MAX_PART_PAGES)
+    return pages, -(-per_seq // pages)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _validate(q, k_pages, v_pages, block_tables, context_lens):
@@ -44,14 +77,29 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
         raise ValueError("paged_attention: inputs must be contiguous")
     b, h, d = q.shape
     _, per_seq, bs, g, _ = k_pages.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head_dim {d} not in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention: q and pages must be 16-byte aligned")
+    lib = build.library()
+    build.check_design("paged_attention", DESIGN, lib)
+    pages, n_part = partitions(b, g, h // g, per_seq, _sm_count(q.device.index))
     out = torch.empty_like(q)
-    err = build.library().paged_attention_launch(
+    ml = acc = None
+    if n_part > 1:  # the partials: (m, l) [b, h, n_part, 2], then acc [b, h, n_part, d]
+        scratch = torch.empty(b * h * n_part * (2 + d), dtype=torch.float32, device=q.device)
+        ml = scratch.data_ptr()
+        acc = ml + b * h * n_part * 2 * 4
+    grid = (ctypes.c_int * 3)()
+    err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), b, h, g, d, per_seq, bs,
-        float(d) ** -0.5, _DTYPES[q.dtype], build.stream_ptr(q.device))
+        context_lens.data_ptr(), out.data_ptr(), ml, acc, b, h, g, d, per_seq, bs, pages,
+        n_part, float(d) ** -0.5, _DTYPES[q.dtype], grid, build.stream_ptr(q.device))
     build.check(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.last_grid = tuple(grid)
     return out
 
 
 paged_attention.launches = 0
+paged_attention.last_grid = None  # the split kernel's grid at the last launch, as launched

@@ -7,21 +7,30 @@ machine with an H100 and nvcc:
 (``--noconftest``: the suite's conftest imports JAX, which that machine
 lacks; this file imports only torch and the port.)  Tolerances as in
 tests/test_kernels.py: f32 2e-4, bf16 2e-2, ssd_scan f32 1e-3; the
-copies are exact.
+copies are exact.  The long bf16 cases also hold ||out - ref|| / ||ref||
+under 1e-2 (their outputs, about 0.02, are near the bf16 atol).
 """
 import pytest
 import torch
 
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_prefill import ops as flash_ops
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.flash_prefill.ref import dense_ref
 from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
 from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+REL_NORM_BF16 = 1e-2
+
+
+def rel_norm(out, ref):
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
 
 
 @pytest.fixture
@@ -52,6 +61,83 @@ def test_paged_attention(gen, b, h, g, d, per, bs, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+def sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def paged_case(gen, b, h, g, d, per, bs, ctx, dtype):
+    q, kp, vp = randn(gen, b, h, d, dtype=dtype), randn(gen, b, per, bs, g, d, dtype=dtype), \
+        randn(gen, b, per, bs, g, d, dtype=dtype)
+    tbl = torch.stack([torch.randperm(per, generator=gen, device="cuda")
+                       for _ in range(b)]).to(torch.int32)
+    ctx = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    out = paged_attention(q, kp, vp, tbl, ctx)
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, kp, vp, tbl, ctx)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["one token", "partition edge", "edge + 1", "ragged"])
+def test_paged_attention_split_partitions(gen, dtype, where):
+    """Several pages per partition (b = 8 leaves fewer partitions than
+    pages), empty trailing partitions, ctx = 1 and ctx on a partition edge."""
+    b, h, g, d, per, bs = 8, 32, 4, 128, 40, 16
+    pages, n_part = partitions(b, g, h // g, per, sm_count())
+    assert pages > 1 and n_part > 1
+    edge = pages * bs
+    ctx = {"one token": [1] * b, "partition edge": [edge, 2 * edge] * (b // 2),
+           "edge + 1": [edge + 1, 1, per * bs, 2 * edge - 1] * (b // 4),
+           "ragged": [1 + 73 * i % (per * bs) for i in range(b)]}[where]
+    paged_case(gen, b, h, g, d, per, bs, ctx, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,g,d", [(10, 2, 64), (32, 2, 32), (4, 4, 128), (8, 2, 8),
+                                   (8, 2, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_head_groups(gen, h, g, d, dtype):
+    """h/g = 5 (a partial block of heads), 16 (two blocks of 8 heads), 1;
+    the smoke configs' d = 8 and d = 16."""
+    paged_case(gen, 3, h, g, d, 6, 16, [5, 96, 41], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_long_context(gen, dtype):
+    """Yi-9B widths at b = 8 and 4096 tokens each (the phase-5 row)."""
+    out, ref = paged_case(gen, 8, 32, 4, 128, 128, 32, [4096] * 8, dtype)
+    if dtype == torch.bfloat16:
+        assert rel_norm(out, ref) <= REL_NORM_BF16
+
+
+@pytest.mark.cuda
+def test_paged_attention_yi_grid(gen):
+    """At Yi-9B b = 3 (11 pages of 32) the split kernel launches at least
+    96 blocks, as the wrapper records its grid."""
+    paged_case(gen, 3, 32, 4, 128, 11, 32, [104, 138, 265], torch.bfloat16)
+    x, y, z = paged_attention.last_grid
+    assert (x, y) == (4, 3) and x * y * z >= 96
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,design", [("paged_attention", paged_ops.DESIGN),
+                                         ("flash_prefill", flash_ops.DESIGN)])
+def test_wrappers_model_the_compiled_design(gen, name, design):
+    build.check_design(name, design)
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_other_head_dims(gen):
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(randn(gen, 1, 4, 48), randn(gen, 1, 2, 16, 2, 48),
+                        randn(gen, 1, 2, 16, 2, 48),
+                        torch.zeros(1, 2, dtype=torch.int32, device="cuda"),
+                        torch.ones(1, dtype=torch.int32, device="cuda"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,h,g,d", [(256, 4, 2, 64), (128, 8, 8, 32), (130, 32, 4, 128),
                                      (1, 4, 2, 64)])
@@ -72,6 +158,53 @@ def test_flash_prefill_window_and_non_causal(gen, kw):
     q, k, v = randn(gen, 1, 200, 4, 32), randn(gen, 1, 200, 2, 32), randn(gen, 1, 200, 2, 32)
     torch.testing.assert_close(flash_prefill(q, k, v, **kw), dense_ref(q, k, v, **kw),
                                rtol=2e-4, atol=2e-4)
+
+
+def prefill_case(gen, b, s, h, g, d, dtype, **kw):
+    q, k, v = randn(gen, b, s, h, d, dtype=dtype), randn(gen, b, s, g, d, dtype=dtype), \
+        randn(gen, b, s, g, d, dtype=dtype)
+    out = flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = dense_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 130, 257])
+def test_flash_prefill_bf16_tensor_cores(gen, d, s):
+    prefill_case(gen, 2, s, 8, 2, d, torch.bfloat16, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_hymba_window_prefix(gen, dtype):
+    """hymba-1.5b: h/g = 25/5, window 1024, 128 meta tokens, 1200 + 128."""
+    prefill_case(gen, 1, 1328, 25, 5, 64, dtype, causal=True, sliding_window=1024,
+                 prefix_len=128)
+
+
+@pytest.mark.cuda
+def test_flash_prefill_bf16_long(gen):
+    """Yi-9B widths at 4096 tokens (the phase-5 row)."""
+    out, ref = prefill_case(gen, 1, 4096, 32, 4, 128, torch.bfloat16, causal=True)
+    assert rel_norm(out, ref) <= REL_NORM_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(causal=False), dict(causal=True, sliding_window=100),
+                                dict(causal=False, sliding_window=70, prefix_len=9)])
+def test_flash_prefill_bf16_masks(gen, kw):
+    prefill_case(gen, 2, 333, 4, 2, 64, torch.bfloat16, **kw)
+
+
+@pytest.mark.cuda
+def test_flash_prefill_bf16_rejects_other_head_dims(gen):
+    q, k = randn(gen, 1, 16, 2, 96, dtype=torch.bfloat16), \
+        randn(gen, 1, 16, 1, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill(q, k, k)
 
 
 @pytest.mark.cuda
