@@ -11,9 +11,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    shapes and at the CPU test grid, f32 (2e-4) and bf16 (2e-2); kv_pull
    exact with untouched pages intact; the int8 round trip within
    max|plane|/127; flash_prefill at hymba-1.5b's full shape (window 1024,
-   128-token prefix, 1328 tokens); ssd_scan on the JAX test grid, the
-   decay extremes (finite) and the full mamba2-780m / hymba-1.5b shapes
-   at ragged lengths, f32 (1e-3) and bf16 x (2e-2).
+   128-token prefix, 1328 tokens); kv_pull_dequant bit-equal into f32
+   and bf16 pools, on pages that are not a multiple of 16 elements, on a
+   pool slice that is not 16-byte aligned and on a full Yi-9B pull;
+   ssd_scan on the JAX test grid, the decay extremes (finite) and the full
+   mamba2-780m / hymba-1.5b shapes at s = 1, 63, 64, 65, the prompts and
+   1328, f32 (1e-3; the full mamba2 prompts within 1e-4) and bf16 x
+   (2e-2).  Phase 1 also fails unless the SASS of the ssd_scan kernels
+   that multiply holds tensor-core (HMMA) instructions.
 3. Serve through the normal entry point: ``repro_torch.launch.serve`` at
    the full Yi-9B config (48 layers, d_model 4096, random weights), once
    plain and once with ``--quantize-transfer``.
@@ -45,7 +50,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    no other did.
 5. Times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call computing the same function (none computes the
-   SSD scan), and the bound.
+   SSD scan), and the bound; for ssd_scan also each of its launches'
+   device time (torch.profiler).
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -64,6 +70,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
+PEAK_TF32_FLOPS = 495e12           # H100 SXM dense TF32 tensor-core rate
 PEAK_F32_FLOPS = 67e12             # H100 SXM f32 without tensor cores
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # the long bf16 cases also hold ||out - ref|| / ||ref|| under this: their
@@ -72,6 +79,7 @@ TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # partition of 16 left out about 0.27
 REL_NORM_BF16 = 1e-2
 SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}   # the JAX package's own for ssd_scan
+SSD_F32_MAMBA2 = 1e-4              # 3xTF32 at f32 accuracy; 1xTF32 would leave ~7e-4
 CONSISTENCY_TOL = 1e-3             # f32 prefill(p) + decode(t) vs prefill(p + t), logits
 YI = dict(h=32, g=4, d=128, bs=32)
 MAMBA = dict(nh=48, hd=64, ns=128)
@@ -112,8 +120,11 @@ def phase_build():
 
 def tensor_core_sass(path, build):
     """Count the tensor-core instructions (HMMA, HGMMA) in each flash_prefill
-    kernel's SASS (``cuobjdump -sass`` of the built library); fail unless
-    every bf16 kernel has some and the f32 kernel has none."""
+    and ssd_scan kernel's SASS (``cuobjdump -sass`` of the built library);
+    fail unless every bf16 flash_prefill kernel has some and the f32 one
+    has none, and every ssd_scan kernel that multiplies (the chunk states,
+    whose grid also takes C.B^T, and the outputs, each for f32 and bf16 x:
+    TF32 HMMA) has some."""
     import pathlib as _pathlib
 
     tool = _pathlib.Path(build._nvcc()).with_name("cuobjdump")
@@ -121,16 +132,23 @@ def tensor_core_sass(path, build):
                           text=True).stdout
     counts = {}
     for chunk in sass.split("Function : ")[1:]:
-        name = re.search(r"flash_prefill_(bf16|f32)_kernel(ILi\d+E)?", chunk.split(None, 1)[0])
+        name = re.search(r"flash_prefill_(bf16|f32)_kernel(ILi\d+E)?"
+                         r"|ssd_(state|out|pass)_kernel(I\w*?E)?",
+                         chunk.split(None, 1)[0])
         if name:
             counts[name.group(0)] = sum(1 for ln in chunk.splitlines()
                                         if "HMMA" in ln or "HGMMA" in ln)
-    bf16 = {n: c for n, c in counts.items() if "bf16" in n}
-    f32 = {n: c for n, c in counts.items() if "f32" in n}
-    log(f"phase 1: tensor-core instructions (HMMA/HGMMA) in flash_prefill SASS: {counts}")
+    bf16 = {n: c for n, c in counts.items() if "flash_prefill_bf16" in n}
+    f32 = {n: c for n, c in counts.items() if "flash_prefill_f32" in n}
+    ssd = {n: c for n, c in counts.items() if n.startswith("ssd_") and "pass" not in n}
+    log(f"phase 1: tensor-core instructions (HMMA/HGMMA) in SASS: {counts}")
     if len(bf16) != len(BF16_HEAD_DIMS) or not all(bf16.values()) or any(f32.values()) \
             or not f32:
         raise AssertionError(f"flash_prefill SASS: bf16 kernels {bf16}, f32 kernel {f32}")
+    kinds = {f"{k}_kernelI{d}" for k in ("state", "out") for d in ("f", "13__nv_bfloat16")}
+    if not all(any(n.startswith(f"ssd_{k}") for n in ssd) for k in kinds) \
+            or not all(ssd.values()):
+        raise AssertionError(f"ssd_scan SASS: the multiplying kernels {ssd} must all hold HMMA")
 
 
 # ------------------------------------------------------------ phase 2
@@ -339,12 +357,30 @@ def check_kv_pull_dequant(gen, dev):
     err = (out - x).abs().reshape(3, -1).amax(dim=1)
     if not bool((err <= x.abs().reshape(3, -1).amax(dim=1) / 127.0 + 1e-7).all()):
         raise AssertionError("kv_pull_dequant: round trip beyond max|x|/127")
-    src, dst, sids, dids = yi_pull_inputs(gen, dev, torch.bfloat16)
-    scales = torch.rand(sids.shape[0], generator=gen, device=dev) * 0.05
-    out = kv_pull_dequant(src, dst.clone(), sids, dids, scales)
-    torch.cuda.synchronize()
-    if not torch.equal(out, kv_pull_dequant_ref(src, dst.clone(), sids, dids, scales)):
-        raise AssertionError("kv_pull_dequant yi-9b pages: differs from the plain version")
+    for dtype in (torch.float32, torch.bfloat16):
+        # pages that are not a multiple of 16 elements (the scalar kernel),
+        # and pools that start off the 16-byte grid (scalar) or on it (vector)
+        for page, offset in (((5, 3), 0), ((4, 2, 33), 0), ((16, 2, 32), 1),
+                             ((16, 2, 32), 16 // dtype.itemsize)):
+            elems = int(torch.tensor(page).prod())
+            src = torch.randint(-127, 128, (12, *page), generator=gen, device=dev,
+                                dtype=torch.int8)
+            pool = torch.randn(10 * elems + offset, generator=gen, device=dev).to(dtype)
+            dst = pool[offset:].view(10, *page)
+            keep = dst.clone()
+            out = kv_pull_dequant(src, dst, sid, did, scales)
+            if not torch.equal(out, kv_pull_dequant_ref(src, keep, sid, did, scales)):
+                raise AssertionError(f"kv_pull_dequant {dtype} pages {page} at element "
+                                     f"{offset} of the pool: differs from the plain version")
+        src, dst, sids, dids = yi_pull_inputs(gen, dev, dtype)
+        yi_scales = torch.rand(sids.shape[0], generator=gen, device=dev) * 0.05
+        out = kv_pull_dequant(src, dst.clone(), sids, dids, yi_scales)
+        torch.cuda.synchronize()
+        if not torch.equal(out, kv_pull_dequant_ref(src, dst.clone(), sids, dids, yi_scales)):
+            raise AssertionError(f"kv_pull_dequant yi-9b pages -> {dtype}: differs from the "
+                                 f"plain version")
+    log("phase 2: kv_pull_dequant bit-equal on pages of 15 and 264 elements, on pools "
+        "off and on the 16-byte grid, and on the yi-9b pull, into f32 and bf16")
     return 0.0
 
 
@@ -386,12 +422,27 @@ def check_ssd_scan(gen, dev):
     a = torch.tensor([-0.01, -8.0], device=dev)  # decay extremes: finite (close checks)
     for dt_fill in (1e-3, 5.0):
         case(1, 64, 2, 16, 8, 16, dt_fill=dt_fill, a=a)
+    mamba = (MAMBA["nh"], MAMBA["hd"], MAMBA["ns"])
+    hymba = (HYMBA["nh"], HYMBA["hd"], HYMBA["ns"])
     err = 0.0
     for s in PROMPTS:
-        err = max(err, case(1, s, MAMBA["nh"], MAMBA["hd"], MAMBA["ns"], 128))
-    for s in (HYMBA_PROMPTS[0] + HYMBA["meta"], HYMBA_PROMPTS[-1] + HYMBA["meta"]):
-        err = max(err, case(1, s, HYMBA["nh"], HYMBA["hd"], HYMBA["ns"], 128))
-    case(1, max(PROMPTS), MAMBA["nh"], MAMBA["hd"], MAMBA["ns"], 128, torch.bfloat16)
+        e = case(1, s, *mamba, 128)
+        if not e <= SSD_F32_MAMBA2:
+            raise AssertionError(f"ssd_scan mamba2-780m s={s} f32: max |err| {e} above "
+                                 f"{SSD_F32_MAMBA2}")
+        err = max(err, e)
+    long_hymba = HYMBA_PROMPTS[-1] + HYMBA["meta"]
+    for s in (HYMBA_PROMPTS[0] + HYMBA["meta"], long_hymba):
+        err = max(err, case(1, s, *hymba, 128))
+    case(1, max(PROMPTS), *mamba, 128, torch.bfloat16)
+    # one row, a chunk less one, one chunk, one row more; hymba's 21 chunks
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (1, 63, 64, 65):
+            case(1, s, *mamba, 128, dtype)
+        case(1, long_hymba, *hymba, 128, dtype)
+    log(f"phase 2: ssd_scan f32 max |err| at the full mamba2-780m / hymba-1.5b prompts "
+        f"{err:.3e} (mamba2 limit {SSD_F32_MAMBA2}); s = 1, 63, 64, 65, {long_hymba} in f32 "
+        f"and bf16 x")
     return err
 
 
@@ -958,21 +1009,50 @@ def ssd_flops(b, s, nh, hd, ns, chunk):
     return b * total
 
 
+def launch_us(fn, pattern, calls=20):
+    """Device time of each kernel that ``fn`` launches, by name (the first
+    match of ``pattern`` in the profiler's kernel name), in us a call:
+    torch.profiler over ``calls`` calls.  None if the profiler shows no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        name = re.search(pattern, ev.key)
+        us = getattr(ev, "device_time_total", 0)
+        if name and us:
+            out[name.group(0)] = out.get(name.group(0), 0.0) + us / calls
+    return out or None
+
+
 def ssd_time_row(gen, dev, s, nh, hd, ns, what):
+    """ssd_scan's bound is the card's with tensor cores (TF32 at 495 TFLOP/s,
+    the kernel's products); ``bound_f32_fma_ms`` keeps PR 12-13's figure at
+    the f32 FMA rate of 67 TFLOP/s for the log line, so the rows compare."""
     from repro_torch.kernels.ssd_scan.ops import KERNEL_CHUNK, ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     x, dt, a, B, C, d_skip = ssd_inputs(gen, dev, 1, s, nh, hd, ns)
     nbytes = 2 * x.numel() * 4 + dt.numel() * 4 + 2 * B.numel() * 4 + 2 * nh * 4 \
         + nh * hd * ns * 4
+    flops = ssd_flops(1, s, nh, hd, ns, KERNEL_CHUNK)
     return dict(
         ms=time_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
         call_ms=call_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
         plain_ms=call_ms(lambda: ssd_scan_ref(x, dt, a, B, C, d_skip)),
         library_ms=None,  # no single PyTorch call computes the SSD scan
-        bound=bound_ms(nbytes, ssd_flops(1, s, nh, hd, ns, KERNEL_CHUNK), PEAK_F32_FLOPS),
+        bound=bound_ms(nbytes, flops, PEAK_TF32_FLOPS),
+        bound_f32_fma_ms=bound_ms(nbytes, flops, PEAK_F32_FLOPS)[0],
+        launch_us=launch_us(lambda: ssd_scan(x, dt, a, B, C, d_skip), r"ssd_\w+_kernel"),
         shape=f"{what}: b=1 s={s} nh={nh} hd={hd} ns={ns} f32, chunk {KERNEL_CHUNK}; "
-              f"bound at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32 (no tensor cores)")
+              f"bound at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32")
 
 
 def paged_time_row(gen, dev, b, per, ctx_list, what):
@@ -1130,7 +1210,7 @@ def fmt_ms(x):
 def timing(row):
     """A phase-5 row's numbers under the keys of the kernels line."""
     bms, by = row["bound"]
-    extra = {k: row[k] for k in ("vs_library", "grid", "blocks") if k in row}
+    extra = {k: row[k] for k in ("vs_library", "grid", "launch_us") if k in row}
     extra["call_ms"] = row["call_ms"]
     return {"ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": row["library_ms"], "shape": row["shape"], **extra}
@@ -1213,12 +1293,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_run": run, "launches_per_request": per,
             "max_abs_err": errs[name], **timing(row), **extra})
-        for r in [timing(row)] + extra.get("also", []):
+        for raw in [row] + row.get("also", []):
+            r = timing(raw)
             log(f"phase 5: {name} [{r['shape']}]: {r['ms']:.4f} ms on the device "
                 f"({r['call_ms']:.4f} ms a call from Python), plain {r['plain_ms']:.4f} ms, "
                 f"library {fmt_ms(r['library_ms'])}, bound {r['bound_ms']:.5f} ms by "
                 f"{r['bound_by']}" + (f"; {r['vs_library']:.2f}x the library call"
-                                      if "vs_library" in r else ""))
+                                      if "vs_library" in r else "")
+                + (f"; {raw['bound_f32_fma_ms']:.5f} ms at the f32 FMA rate"
+                   if "bound_f32_fma_ms" in raw else "")
+                + (f"; us a launch (profiler) {r['launch_us']}" if "launch_us" in r else ""))
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,7 @@
 //     -> kv_pull_kernel, `txn_bytes` contiguous bytes per transaction (the
 //     transfer engine expands coalesced runs into single-page ids);
 //   * kv_pull_dequant          (kernel.py:92)
-//     -> kv_pull_dequant_kernel.
+//     -> kv_pull_dequant_vec_kernel (scalar fallback kv_pull_dequant_kernel).
 //
 // What bounds it on an H100: bytes.  A copy does no arithmetic; each page
 // is read once and written once, so the floor is 2 * bytes / 3.35 TB/s.
@@ -23,7 +23,14 @@
 // touched (RDMA-write semantics of the Pallas kernel's aliased output).
 // The dequant variant is one pass: int8 -> f32 * scale[i] -> dst dtype,
 // the same rounding as the reference engine (f32 product, then one
-// round-to-nearest-even cast).
+// round-to-nearest-even cast).  It moves whole 16-byte pieces too: each
+// thread loads one piece of 16 int8 into shared memory, and its warp
+// stores the warp's 512 int8 as 16-byte pieces of the dst type, each
+// store instruction on 512 contiguous bytes (bf16 rounded in pairs by
+// __floats2bfloat162_rn, the same rounding as __float2bfloat16_rn).  The
+// grid is kv_pull's, (transaction, chunk of 256 pieces): 4 blocks a
+// Yi-9B page of 16384 int8.  Pages whose element count is not a multiple
+// of 16, or pools off the 16-byte grid, take the scalar kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -72,6 +79,62 @@ __global__ void kv_pull_dequant_kernel(const int8_t* __restrict__ src,
   }
 }
 
+__device__ __forceinline__ float s8(uint32_t w, int k) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * k)));
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// One 16-byte dst piece from int8 words staged in shared memory: 4 int8
+// -> 4 f32, or 8 int8 -> 8 bf16.
+__device__ __forceinline__ void store_piece(float* d, const uint32_t* w, float scale) {
+  *reinterpret_cast<float4*>(d) =
+      make_float4(s8(w[0], 0) * scale, s8(w[0], 1) * scale, s8(w[0], 2) * scale,
+                  s8(w[0], 3) * scale);
+}
+__device__ __forceinline__ void store_piece(__nv_bfloat16* d, const uint32_t* w, float scale) {
+  *reinterpret_cast<uint4*>(d) = make_uint4(
+      bf16x2(s8(w[0], 0) * scale, s8(w[0], 1) * scale),
+      bf16x2(s8(w[0], 2) * scale, s8(w[0], 3) * scale),
+      bf16x2(s8(w[1], 0) * scale, s8(w[1], 1) * scale),
+      bf16x2(s8(w[1], 2) * scale, s8(w[1], 3) * scale));
+}
+
+// page_vecs 16-byte pieces of int8 a page; dst pages of page_vecs * 16 T.
+// A warp loads 32 pieces (512 int8, one 16-byte load a lane) into shared
+// memory, then stores them as 16-byte pieces of T, lane after lane, so
+// that each store instruction of the warp covers 512 contiguous bytes.
+template <typename T>
+__global__ void kv_pull_dequant_vec_kernel(const uint4* __restrict__ src, T* __restrict__ dst,
+                                           const int32_t* __restrict__ src_ids,
+                                           const int32_t* __restrict__ dst_ids,
+                                           const float* __restrict__ scales,
+                                           int64_t page_vecs) {
+  constexpr int kOut = 16 / sizeof(T);  // int8 a 16-byte dst piece takes
+  __shared__ uint4 stage[kThreads];
+  const int txn = blockIdx.x;
+  const float scale = scales[txn];
+  const uint4* s = src + static_cast<int64_t>(src_ids[txn]) * page_vecs;
+  T* d = dst + static_cast<int64_t>(dst_ids[txn]) * page_vecs * 16;
+  const int lane = threadIdx.x & 31, warp0 = threadIdx.x & ~31;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(stage + warp0);
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.y) * blockDim.x + warp0; i0 < page_vecs;
+       i0 += static_cast<int64_t>(gridDim.y) * blockDim.x) {
+    if (i0 + lane < page_vecs) stage[threadIdx.x] = s[i0 + lane];
+    __syncwarp();
+    const int64_t n = (page_vecs - i0 < 32 ? page_vecs - i0 : 32) * 16;  // int8 staged
+#pragma unroll
+    for (int k = 0; k < 16 / kOut; ++k) {
+      const int e = (k * 32 + lane) * kOut;
+      if (e < n) store_piece(d + i0 * 16 + e, words + e / 4, scale);
+    }
+    __syncwarp();
+  }
+}
+
 unsigned chunks_for(int64_t n) {
   int64_t c = (n + kThreads - 1) / kThreads;
   if (c > 1024) c = 1024;  // grid-stride loop covers the rest
@@ -112,20 +175,34 @@ extern "C" int kv_pull_dequant_launch(const void* src, void* dst, const void* sr
                                       int n_txn, int64_t page_elems, int dst_dtype,
                                       void* stream) {
   if (n_txn <= 0) return 0;
+  if (dst_dtype != 0 && dst_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_txn, chunks_for(page_elems));
   const int8_t* q = static_cast<const int8_t*>(src);
   const int32_t* sid = static_cast<const int32_t*>(src_ids);
   const int32_t* did = static_cast<const int32_t*>(dst_ids);
   const float* sc = static_cast<const float*>(scales);
+  const bool vec16 = (page_elems % 16 == 0) &&
+                     (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
+                     (reinterpret_cast<uintptr_t>(dst) % 16 == 0);
+  if (vec16) {
+    const int64_t n = page_elems / 16;
+    dim3 grid(n_txn, chunks_for(n));
+    const uint4* qv = static_cast<const uint4*>(src);
+    if (dst_dtype == 0)
+      kv_pull_dequant_vec_kernel<float><<<grid, kThreads, 0, s>>>(
+          qv, static_cast<float*>(dst), sid, did, sc, n);
+    else
+      kv_pull_dequant_vec_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+          qv, static_cast<__nv_bfloat16*>(dst), sid, did, sc, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  dim3 grid(n_txn, chunks_for(page_elems));
   if (dst_dtype == 0) {
     kv_pull_dequant_kernel<float><<<grid, kThreads, 0, s>>>(
         q, static_cast<float*>(dst), sid, did, sc, page_elems);
-  } else if (dst_dtype == 1) {
+  } else {
     kv_pull_dequant_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         q, static_cast<__nv_bfloat16*>(dst), sid, did, sc, page_elems);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

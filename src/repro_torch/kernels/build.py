@@ -41,7 +41,9 @@ SIGNATURES = {
     "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "kv_pull_launch": [_P, _P, _P, _P, _I, _I64, _P],
     "kv_pull_dequant_launch": [_P, _P, _P, _P, _P, _I, _I64, _I, _P],
-    "ssd_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ssd_scan_design": [ctypes.POINTER(_I), _I],
+    "ssd_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
 }
 
 

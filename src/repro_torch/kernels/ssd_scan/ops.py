@@ -1,5 +1,7 @@
-"""Mamba-2 SSD chunked scan: the CUDA kernel on CUDA tensors
-(``csrc/ssd_scan.cu``), the plain version on CPU tensors."""
+"""Mamba-2 SSD chunked scan: the CUDA kernels on CUDA tensors
+(``csrc/ssd_scan.cu``: C.B^T per chunk beside each chunk's decay cumsum
+and own state, then the state passing, then the outputs; three launches
+of one C entry, one count), the plain version on CPU tensors."""
 from __future__ import annotations
 
 import torch
@@ -7,10 +9,21 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-__all__ = ["ssd_scan", "KERNEL_CHUNK"]
+__all__ = ["ssd_scan", "KERNEL_CHUNK", "HD_TILE", "THREADS", "DESIGN", "chunking"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_CHUNK = 64  # the kernel's longest internal chunk (csrc/ssd_scan.cu, kMaxL)
+# The kernel's design as this module models it; ``ssd_scan_design`` in the
+# compiled kernel must report the same before the first launch.
+KERNEL_CHUNK = 64  # the longest internal chunk: the rows of every tile (and of the CB scratch)
+HD_TILE = 64       # hd columns a block of the chunk-state and output steps
+THREADS = 128      # 4 warps a block, one 16-row tensor-core tile each
+DESIGN = {"kernel_chunk": KERNEL_CHUNK, "hd_tile": HD_TILE, "threads": THREADS}
+
+
+def chunking(s: int, chunk: int) -> tuple[int, int]:
+    """(internal chunk l, chunks nc) the kernel scans ``s`` rows in."""
+    l = min(s, chunk, KERNEL_CHUNK)
+    return l, -(-s // l)
 
 
 def _validate(x, dt, a, B, C, d_skip):
@@ -38,6 +51,8 @@ def ssd_scan(x, dt, a, B, C, d_skip, *, chunk: int = 128):
     kernel scans in chunks of min(chunk, KERNEL_CHUNK) (the SSD result
     does not depend on it, only the order of the sums does)."""
     _validate(x, dt, a, B, C, d_skip)
+    if chunk < 1:
+        raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
     if not build.on_cuda("ssd_scan", x, dt, a, B, C, d_skip):
         return ssd_scan_ref(x, dt, a, B, C, d_skip, chunk=chunk)
     for t in (x, dt, a, B, C, d_skip):
@@ -45,12 +60,21 @@ def ssd_scan(x, dt, a, B, C, d_skip, *, chunk: int = 128):
             raise ValueError("ssd_scan: inputs must be contiguous")
     b, s, nh, hd = x.shape
     ns = B.shape[-1]
+    lib = build.library()
+    build.check_design("ssd_scan", DESIGN, lib)
     y = torch.empty_like(x)
     state = torch.empty((b, nh, hd, ns), dtype=torch.float32, device=x.device)
-    err = build.library().ssd_scan_launch(
+    # scratch: CB [b, nc, K, K], cum [b, nc, nh, K], states [b, nc, nh, hd, ns]
+    nc = chunking(s, chunk)[1] if s else 0
+    n_cb, n_cum = b * nc * KERNEL_CHUNK ** 2, b * nc * nh * KERNEL_CHUNK
+    scratch = torch.empty(n_cb + n_cum + b * nc * nh * hd * ns, dtype=torch.float32,
+                          device=x.device)
+    cb = scratch.data_ptr()
+    err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
-        d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, nh, hd, ns,
-        min(chunk, KERNEL_CHUNK), _DTYPES[x.dtype], build.stream_ptr(x.device))
+        d_skip.data_ptr(), y.data_ptr(), state.data_ptr(), cb, cb + 4 * n_cb,
+        cb + 4 * (n_cb + n_cum), b, s, nh, hd, ns, min(chunk, KERNEL_CHUNK),
+        _DTYPES[x.dtype], build.stream_ptr(x.device))
     build.check(err, "ssd_scan")
     ssd_scan.launches += 1
     return y, state

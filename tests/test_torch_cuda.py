@@ -22,6 +22,7 @@ from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -124,7 +125,8 @@ def test_paged_attention_yi_grid(gen):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,design", [("paged_attention", paged_ops.DESIGN),
-                                         ("flash_prefill", flash_ops.DESIGN)])
+                                         ("flash_prefill", flash_ops.DESIGN),
+                                         ("ssd_scan", ssd_ops.DESIGN)])
 def test_wrappers_model_the_compiled_design(gen, name, design):
     build.check_design(name, design)
 
@@ -234,6 +236,63 @@ def test_kv_pull_dequant_exact(gen, dtype):
                        kv_pull_dequant_ref(src, dst.clone(), sid, did, sc))
 
 
+def dequant_case(gen, dtype, page_shape, n_src=12, n_dst=10, offset=0):
+    """kv_pull_dequant into a pool of n_dst pages that starts ``offset``
+    elements into its storage (offset 1: not 16-byte aligned)."""
+    elems = 1
+    for d in page_shape:
+        elems *= d
+    src = torch.randint(-127, 128, (n_src, *page_shape), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    storage = randn(gen, n_dst * elems + offset, dtype=dtype)
+    dst = storage[offset:].view(n_dst, *page_shape)
+    sid = torch.tensor([0, 5, 11, 3], dtype=torch.int32, device="cuda")
+    did = torch.tensor([9, 1, 4, 0], dtype=torch.int32, device="cuda")
+    sc = torch.tensor([0.013, 1.0, 0.5, 0.0021], device="cuda")
+    keep = dst.clone()
+    out = kv_pull_dequant(src, dst, sid, did, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kv_pull_dequant_ref(src, keep.clone(), sid, did, sc))
+    untouched = [i for i in range(n_dst) if i not in (9, 1, 4, 0)]
+    assert torch.equal(out[untouched], keep[untouched])
+    return dst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_shape", [(5, 3), (4, 2, 33), (7,)])
+def test_kv_pull_dequant_pages_not_a_multiple_of_16(gen, dtype, page_shape):
+    """The scalar kernel takes pages whose element count is not a multiple
+    of 16 (the vector kernel would cut their ends)."""
+    dequant_case(gen, dtype, page_shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_pull_dequant_unaligned_pool(gen, dtype):
+    """A pool slice one element into its storage: not 16-byte aligned, so
+    the scalar kernel runs; an aligned slice of the same pages the vector
+    one.  Both bit-equal to the plain version."""
+    assert dequant_case(gen, dtype, (16, 2, 32), offset=1).data_ptr() % 16
+    assert dequant_case(gen, dtype, (16, 2, 32), offset=16 // dtype.itemsize).data_ptr() % 16 == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_pull_dequant_yi_pull(gen, dtype):
+    """One 257-token Yi-9B request: 864 int8 pages of 16384 -> the pool."""
+    n_txn, elems, n_dst = 9 * 48 * 2, 32 * 4 * 128, 256 * 2 * 48 // 8
+    src = torch.randint(-127, 128, (n_txn, elems), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    dst = randn(gen, n_dst, elems, dtype=dtype)
+    sid = torch.arange(n_txn, dtype=torch.int32, device="cuda")
+    did = torch.randperm(n_dst, generator=gen, device="cuda")[:n_txn].to(torch.int32)
+    sc = torch.rand(n_txn, generator=gen, device="cuda") * 0.05
+    out = kv_pull_dequant(src, dst.clone(), sid, did, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kv_pull_dequant_ref(src, dst.clone(), sid, did, sc))
+
+
 def ssd_inputs(gen, b, s, nh, hd, ns, dtype=torch.float32, dt_fill=None):
     x = (torch.randn(b, s, nh, hd, generator=gen, device="cuda") * 0.5).to(dtype)
     dt = (torch.randn(b, s, nh, generator=gen, device="cuda").abs() * 0.1 + 0.01
@@ -280,6 +339,57 @@ def test_ssd_scan_bf16_x(gen):
     assert y.dtype == torch.bfloat16
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+MAMBA2 = (48, 64, 128)  # nh, hd, ns of mamba2-780m
+HYMBA = (50, 64, 16)    # of hymba-1.5b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,widths", [(1, MAMBA2), (63, MAMBA2), (64, MAMBA2), (65, MAMBA2),
+                                      (1328, HYMBA)])
+def test_ssd_scan_lengths(gen, s, widths, dtype):
+    """One row, a chunk less one, one chunk, one more row (mamba2-780m), and
+    hymba-1.5b's longest prefill (1200 tokens + 128 meta, 21 chunks)."""
+    args = ssd_inputs(gen, 1, s, *widths, dtype=dtype)
+    y, st = ssd_scan(*args)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_scan_ref(*args)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,hd,ns,chunk", [(1, 70, 3, 18, 5, 32), (2, 45, 2, 20, 6, 16),
+                                                (1, 130, 2, 66, 40, 64)])
+def test_ssd_scan_widths_off_the_16_byte_grid(gen, b, s, nh, hd, ns, chunk, dtype):
+    """hd or ns not a multiple of 4: the tiles load element by element (and
+    hd x ns = 90 passes the states element by element); hd 66 takes a
+    second, nearly empty hd tile, ns 40 the wide state tile, zero-padded."""
+    args = ssd_inputs(gen, b, s, nh, hd, ns, dtype=dtype)
+    y, st = ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_scan_ref(*args, chunk=chunk)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_mamba2_full_width_f32_accurate(gen):
+    """3xTF32 keeps f32 accuracy: the full mamba2-780m prefill of a
+    257-token prompt within 1e-4 of the plain version (1xTF32 would leave
+    about 7e-4, tests/test_torch_ssd_design.py)."""
+    args = ssd_inputs(gen, 1, 257, *MAMBA2)
+    y, st = ssd_scan(*args)
+    torch.cuda.synchronize()
+    y_ref, st_ref = ssd_scan_ref(*args)
+    assert float((y - y_ref).abs().max()) <= 1e-4
+    assert float((st - st_ref).abs().max()) <= 1e-4
 
 
 @pytest.mark.cuda
