@@ -17,8 +17,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ssd_scan on the JAX test grid, the decay extremes (finite) and the full
    mamba2-780m / hymba-1.5b shapes at s = 1, 63, 64, 65, the prompts and
    1328, f32 (1e-3; the full mamba2 prompts within 1e-4) and bf16 x
-   (2e-2).  Phase 1 also fails unless the SASS of the ssd_scan kernels
-   that multiply holds tensor-core (HMMA) instructions.
+   (2e-2); the attention kernels at the shapes of phases 8-10:
+   paged_attention at granite-moe's GQA 24/8, whisper's MHA 20/20 (d 64)
+   and llava's 3018-token context, flash_prefill non-causal over 1500 keys
+   (s = 1500, 33, 1; d 64 and 128), at granite-moe's prompts and at
+   llava's 2976 and 3010 tokens.  Phase 1 also fails unless the SASS of
+   the ssd_scan kernels that multiply holds tensor-core (HMMA)
+   instructions.
 3. Serve through the normal entry point: ``repro_torch.launch.serve`` at
    the full Yi-9B config (48 layers, d_model 4096, random weights), once
    plain and once with ``--quantize-transfer``.
@@ -48,10 +53,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel it must use launched (flash_prefill and ssd_scan once per
    layer and prompt, paged_attention once per layer and decode step) and
    no other did.
+8. granite-moe-3b-a800m at full width (32 layers, d_model 1536, 40
+   experts top-8 padded to 48) served as Yi-9B in phases 3-4: launch.serve
+   plain and quantized, then the DisaggService on 96/130/257 tokens, its
+   tokens equal to monolithic runs one at a time and at b = 3 in the same
+   row order.  Then llama4-maverick-400b-a17b at full width cut to one
+   group (a dense layer, d_ff 16384, and a MoE layer of 128 experts top-1
+   with the shared expert; about 37 GB): 96 tokens and 8 new ones, tokens
+   in range, launch counts exact.
+9. llava-next-mistral-7b at full width with 2880 seeded image embeddings
+   ahead of 96 and 130 text tokens, through the steps: each prompt's pages
+   parked in a PagedKVCache on the card, pulled by pull_kv (kv_pull) into
+   another and decoded from there; the tokens equal the monolithic ones.
+10. whisper-large-v3 at full width (32 encoder and 32 decoder layers)
+   over 1500 seeded frames, decoder prompts of 4, 33 and 130 tokens, 8 new
+   tokens each; flash_prefill 96 times a prefill and 32 times a step (the
+   cross-attention), paged_attention 32 times a step; with the weights in
+   f32, prefill(p) + decode_step(t) against prefill(p + t).
+   Phases 8-10 zero and check their own launch counts, as 3-7 do, and
+   free each model before the next is built.
 5. Times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call computing the same function (none computes the
    SSD scan), and the bound; for ssd_scan also each of its launches'
-   device time (torch.profiler).
+   device time (torch.profiler); and rows at whisper's decode, encoder and
+   decode cross-attention and llava's 2976-token prefill.
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -84,8 +109,14 @@ CONSISTENCY_TOL = 1e-3             # f32 prefill(p) + decode(t) vs prefill(p + t
 YI = dict(h=32, g=4, d=128, bs=32)
 MAMBA = dict(nh=48, hd=64, ns=128)
 HYMBA = dict(h=25, g=5, d=64, nh=50, hd=64, ns=16, window=1024, meta=128)
+GRANITE = dict(h=24, g=8, d=64)
+MAVERICK = dict(h=40, g=8, d=128, prompt=96)   # llama4-maverick, cut to 2 layers
+LLAVA = dict(h=32, g=8, d=128, vision=2880)
+WHISPER = dict(h=20, g=20, d=64, frames=1500)
 PROMPTS = (96, 130, 257)
 HYMBA_PROMPTS = (96, 130, 1200)
+LLAVA_PROMPTS = (96, 130)          # text after the 2880 image tokens
+WHISPER_PROMPTS = (4, 33, 130)     # decoder prompts over 1500 frames
 MAX_NEW = 8
 BF16_HEAD_DIMS = (32, 64, 128)     # flash_prefill's tensor-core kernels
 LONG_PROMPT = 4096                 # the longer rows of phase 5
@@ -216,6 +247,24 @@ def check_paged_attention(gen, dev):
     for dtype in (torch.float32, torch.bfloat16):
         case(8, YI["h"], YI["g"], YI["d"], LONG_CTX // YI["bs"], YI["bs"], dtype,
              ctx=long_ctx, rel_norm=REL_NORM_BF16 if dtype == torch.bfloat16 else None)
+    # the new families' decode shapes: granite-moe GQA 24/8 at d = 64 (b = 3,
+    # Yi's prompts), whisper MHA 20/20 (one query head a kv-head), llava
+    # after its image
+    whisper_ctx = torch.tensor([p + MAX_NEW for p in WHISPER_PROMPTS], dtype=torch.int32,
+                               device=dev)
+    llava_ctx = torch.tensor([LLAVA["vision"] + max(LLAVA_PROMPTS) + MAX_NEW],
+                             dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        case(3, GRANITE["h"], GRANITE["g"], GRANITE["d"], 11, 32, dtype, ctx=yi_ctx)
+        case(3, WHISPER["h"], WHISPER["g"], WHISPER["d"], 21, 32, dtype, ctx=whisper_ctx)
+        # llama4-maverick: h/g = 5 at d = 128, 3 + 16 pages after its prompt
+        case(1, MAVERICK["h"], MAVERICK["g"], MAVERICK["d"], 19, 32, dtype,
+             ctx=torch.tensor([MAVERICK["prompt"] + MAX_NEW], dtype=torch.int32, device=dev))
+    case(1, LLAVA["h"], LLAVA["g"], LLAVA["d"], 111, 32, torch.bfloat16, ctx=llava_ctx,
+         rel_norm=REL_NORM_BF16)
+    log("phase 2: paged_attention at granite-moe 24/8 d 64, whisper MHA 20/20 d 64, "
+        f"llama4-maverick 40/8 d 128 (grid {paged_attention.last_grid} at the last), "
+        f"llava 32/8 d 128 over {int(llava_ctx[0])} tokens")
     return case(3, YI["h"], YI["g"], YI["d"], 11, YI["bs"], torch.bfloat16, ctx=yi_ctx)
 
 
@@ -231,14 +280,15 @@ def check_flash_prefill(gen, dev):
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import dense_ref
 
-    def case(b, s, h, g, d, dtype, rel_norm=None, **kw):
+    def case(b, s, h, g, d, dtype, rel_norm=None, t=None, **kw):
+        t = s if t is None else t
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, g, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, g, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, t, g, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, t, g, d, generator=gen, device=dev).to(dtype)
         out = flash_prefill(q, k, v, **kw)
         torch.cuda.synchronize()
         return close(out, dense_ref(q, k, v, **kw), TOL[str(dtype).split(".")[1]],
-                     f"flash_prefill s={s} h={h} g={g} d={d} {dtype} {kw}", rel_norm)
+                     f"flash_prefill s={s} t={t} h={h} g={g} d={d} {dtype} {kw}", rel_norm)
 
     for dtype in (torch.float32, torch.bfloat16):
         for s, h, g, d in ((256, 4, 2, 64), (128, 8, 8, 32), (256, 6, 1, 128)):
@@ -260,6 +310,30 @@ def check_flash_prefill(gen, dev):
     s = max(HYMBA_PROMPTS) + HYMBA["meta"]
     for dtype in (torch.float32, torch.bfloat16):
         case(1, s, HYMBA["h"], HYMBA["g"], HYMBA["d"], dtype, **hy)
+    # whisper: the encoder (1500 x 1500) and the cross-attention of each
+    # prompt and of a decode step over 1500 keys, not a multiple of the
+    # 64-row tile, non-causal, at d = 64 (whisper's MHA; the d = 128 kernel
+    # at its own cases); the decoder prompts causal
+    t = WHISPER["frames"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (t, *WHISPER_PROMPTS, 1):
+            case(1, s, WHISPER["h"], WHISPER["g"], WHISPER["d"], dtype, t=t, causal=False)
+        for s in (t, 33, 1):
+            case(1, s, 16, 16, 128, dtype, t=t, causal=False)
+        for s in WHISPER_PROMPTS:
+            case(1, s, WHISPER["h"], WHISPER["g"], WHISPER["d"], dtype, causal=True)
+        for s in PROMPTS:  # granite-moe GQA 24/8 at d = 64
+            case(1, s, GRANITE["h"], GRANITE["g"], GRANITE["d"], dtype, causal=True)
+        # llama4-maverick's prompt: h/g = 5 at d = 128
+        case(1, MAVERICK["prompt"], MAVERICK["h"], MAVERICK["g"], MAVERICK["d"], dtype,
+             causal=True)
+    for text in LLAVA_PROMPTS:  # llava's image + text prefill
+        case(1, LLAVA["vision"] + text, LLAVA["h"], LLAVA["g"], LLAVA["d"], torch.bfloat16,
+             rel_norm=REL_NORM_BF16, causal=True)
+    log(f"phase 2: flash_prefill non-causal s = {t}, {WHISPER_PROMPTS}, 1 over t = {t} at "
+        f"d = 64 (and {t}, 33, 1 at 128), whisper's causal prompts {WHISPER_PROMPTS}, "
+        f"granite-moe 24/8 d 64, llama4-maverick 40/8 d 128, llava 32/8 d 128 at "
+        f"{[LLAVA['vision'] + p for p in LLAVA_PROMPTS]} tokens")
     return err
 
 
@@ -536,11 +610,11 @@ def expect_launches(path, got, n_layers, prompts, decode_steps, quantized):
     return got
 
 
-def phase_serve(model, params, prompts, refs):
-    """Phases 3 and 4, each run a path of its own.  Returns (the launch
-    counts of the two launch.serve runs, launches per request of the
-    direct one-at-a-time run, and for kv_pull_dequant of the quantized
-    direct run)."""
+def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "phase 4")):
+    """Phases 3 and 4 (``tags``: phase 8 for granite-moe-3b-a800m), each
+    run a path of its own.  Returns (the launch counts of the two
+    launch.serve runs, launches per request of the direct one-at-a-time
+    run, and for kv_pull_dequant of the quantized direct run)."""
     import numpy as np
     import torch
 
@@ -548,7 +622,8 @@ def phase_serve(model, params, prompts, refs):
     from repro_torch.serving.disagg import DisaggService
 
     n_layers = model.cfg.num_layers
-    serve_args = ["--arch", "yi-9b", "--requests", "3", "--prompt-len", "96",
+    t_serve, t_direct = tags
+    serve_args = ["--arch", arch, "--requests", "3", "--prompt-len", "96",
                   "--max-new", str(MAX_NEW)]
     serve_counts = {}
     for quantized in (False, True):
@@ -557,9 +632,9 @@ def phase_serve(model, params, prompts, refs):
         t0 = time.perf_counter()
         serve.main(serve_args + (["--quantize-transfer"] if quantized else []))
         torch.cuda.synchronize()
-        log(f"phase 3: {path} yi-9b, 3 requests in {time.perf_counter() - t0:.1f}s")
+        log(f"{t_serve}: {path} {arch}, 3 requests in {time.perf_counter() - t0:.1f}s")
         serve_counts[quantized] = expect_launches(
-            f"phase 3: {path}", read_counts(), n_layers, 3, 3 * MAX_NEW, quantized)
+            f"{t_serve}: {path}", read_counts(), n_layers, 3, 3 * MAX_NEW, quantized)
 
     svc = DisaggService(model, params, n_prefill=2, n_decode=1, num_blocks=256)
     reset_counts()
@@ -570,13 +645,13 @@ def phase_serve(model, params, prompts, refs):
         if got != ref:
             raise AssertionError(f"{len(tokens)}-token prompt: disaggregated {got} "
                                  f"!= monolithic {ref}")
-        log(f"phase 4: {len(tokens)}-token prompt via {h.request.prefill_worker}: "
+        log(f"{t_direct}: {len(tokens)}-token prompt via {h.request.prefill_worker}: "
             f"tokens {got} == monolithic; pulled {h.metrics.kv_bytes_pulled} B")
     torch.cuda.synchronize()
-    seq = expect_launches("phase 4: one at a time", read_counts(), n_layers,
+    seq = expect_launches(f"{t_direct}: one at a time", read_counts(), n_layers,
                           len(prompts), len(prompts) * MAX_NEW, False)
     per_request = {k: n / len(prompts) for k, n in seq.items()}
-    log(f"phase 4: 3 requests disaggregated in {time.perf_counter() - t0:.1f}s")
+    log(f"{t_direct}: 3 requests disaggregated in {time.perf_counter() - t0:.1f}s")
 
     # continuous batching with every pull landed first: all three decode
     # together from the first step, so every step runs at b = 3
@@ -589,7 +664,7 @@ def phase_serve(model, params, prompts, refs):
         raise AssertionError(f"not every pull landed before decode: resident {slots}")
     batched = svc.generate_many(hs, max_new=MAX_NEW)
     torch.cuda.synchronize()
-    expect_launches("phase 4: together at b = 3", read_counts(), n_layers, len(prompts),
+    expect_launches(f"{t_direct}: together at b = 3", read_counts(), n_layers, len(prompts),
                     MAX_NEW, False)
     by_id = {h.request_id: t for h, t in zip(hs, prompts)}
     ref3 = dict(zip(slots, monolithic_batched(model, params, [by_id[r] for r in slots],
@@ -600,7 +675,7 @@ def phase_serve(model, params, prompts, refs):
                                  f"disaggregated {batched[h.request_id]} != monolithic "
                                  f"b = 3 {ref3[h.request_id]}")
     same_b1 = sum(batched[h.request_id] == r for h, r in zip(hs, refs))
-    log(f"phase 4: together at b = 3 (slots {slots}): every stream equals the "
+    log(f"{t_direct}: together at b = 3 (slots {slots}): every stream equals the "
         f"monolithic b = 3 stream; {same_b1}/3 also equal the b = 1 streams")
     del svc, hs
 
@@ -612,8 +687,8 @@ def phase_serve(model, params, prompts, refs):
     torch.cuda.synchronize()
     got = read_counts()
     if got["kv_pull_dequant"] <= 0 or got["flash_prefill"] != n_layers * len(prompts):
-        raise AssertionError(f"phase 4: quantized: launches {got}")
-    log(f"phase 4: quantized: launches {got}")
+        raise AssertionError(f"{t_direct}: quantized: launches {got}")
+    log(f"{t_direct}: quantized: launches {got}")
     per_request["kv_pull_dequant"] = got["kv_pull_dequant"] / len(hs)
     stats = svc.engine.stats
     block = svc.decode.cache.block_nbytes
@@ -624,7 +699,7 @@ def phase_serve(model, params, prompts, refs):
         raise AssertionError("quantized run did not finish every request")
     agree = [int(np.sum(np.array(out[h.request_id]) == np.array(r)))
              for h, r in zip(hs, refs)]
-    log(f"phase 4: quantized transfer: {stats.reads_posted} reads, "
+    log(f"{t_direct}: quantized transfer: {stats.reads_posted} reads, "
         f"{stats.bytes_moved} wire bytes = reads x ({block}/2+4); tokens agreeing "
         f"with full precision per request {agree}/{MAX_NEW + 1}")
     del svc, hs
@@ -678,14 +753,16 @@ def cast_tree(tree, dtype):
     return tree.to(dtype)
 
 
-def consistency_f32(model, p32, tokens, what):
+def consistency_f32(model, p32, tokens, what, extra=None):
     """prefill(p) + decode_step(t) against prefill(p + t), weights ``p32``
-    in f32: the contract of tests/test_model_correctness.py:169-187."""
+    in f32 (``extra``: the batch's other inputs, whisper's frames): the
+    contract of tests/test_model_correctness.py:169-187."""
     import torch
 
     toks = torch.as_tensor(tokens[None])
-    ref, _ = model.prefill(p32, {"tokens": toks})
-    _, state = model.prefill(p32, {"tokens": toks[:, :-1]})
+    extra = extra or {}
+    ref, _ = model.prefill(p32, {"tokens": toks, **extra})
+    _, state = model.prefill(p32, {"tokens": toks[:, :-1], **extra})
     out, _ = model.decode_step(p32, state, toks[:, -1])
     torch.cuda.synchronize()
     diff = float((out - ref).abs().max())
@@ -942,6 +1019,197 @@ def phase_hymba():
     return counts
 
 
+# -------------------------------------------------------- phases 8-10
+def free_model():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(dev):
+    """Phase 8: granite-moe-3b-a800m served through launch.serve and a
+    DisaggService exactly as Yi-9B in phases 3-4 (its tokens equal to
+    monolithic runs, one at a time and all three at b = 3 in the same row
+    order), then llama4-maverick-400b-a17b at full width cut to one group
+    of two layers.  Returns (granite's launch.serve counts, its launches
+    per request, maverick's counts)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("granite-moe-3b-a800m")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"phase 8: {cfg.describe()}; experts padded {cfg.num_experts} -> "
+        f"{cfg.padded_experts}; weights in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPTS]
+    refs = [monolithic_generate(model, params, t, MAX_NEW) for t in prompts]
+    serve_counts, per_request = phase_serve(model, params, prompts, refs,
+                                            arch="granite-moe-3b-a800m",
+                                            tags=("phase 8", "phase 8"))
+    del params, model
+    free_model()
+
+    # llama4-maverick: one group = one dense layer (d_ff 16384) and one MoE
+    # layer (128 experts top-1 and the shared expert)
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                              num_layers=get_config("llama4-maverick-400b-a17b").moe_every)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"phase 8: {cfg.describe()} (depth cut 48 -> {cfg.num_layers}); "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card; weights in "
+        f"{time.perf_counter() - t0:.1f}s")
+    tokens = rng.integers(0, cfg.vocab_size, MAVERICK["prompt"]).astype(np.int32)
+    reset_counts()
+    tok, state = make_prefill_step(model)(params, {"tokens": torch.as_tensor(tokens[None])})
+    out = decode_greedy(make_serve_step(model), params, state, tok, MAX_NEW)[0]
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    maverick = expect_counts("phase 8: llama4-maverick 96 tokens + 8", read_counts(), {
+        "flash_prefill": L, "paged_attention": L * MAX_NEW, "kv_pull": 0,
+        "kv_pull_dequant": 0, "ssd_scan": 0})
+    if len(out) != MAX_NEW + 1 or not all(0 <= x < cfg.vocab_size for x in out):
+        raise AssertionError(f"phase 8: llama4-maverick tokens {out}")
+    log(f"phase 8: llama4-maverick tokens {out}")
+    del params, model, state
+    free_model()
+    return serve_counts, per_request, maverick
+
+
+def phase_llava(dev):
+    """Phase 9: llava-next-mistral-7b at full width, 2880 seeded image
+    embeddings ahead of text prompts of 96 and 130 tokens, through
+    launch.steps; each prompt's pages parked in a PagedKVCache, pulled
+    with pull_kv (kv_pull on the card) and decoded from there: the tokens
+    must equal the monolithic ones.  Returns (launch counts of the run,
+    bytes pulled per request)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.kv_link import KVLink
+
+    cfg = get_config("llava-next-mistral-7b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"phase 9: {cfg.describe()}; weights in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    link = KVLink(cfg, num_blocks=128, dtype=torch.bfloat16, device=dev)
+    L, n = cfg.num_layers, len(LLAVA_PROMPTS)
+    reset_counts()
+    t0 = time.perf_counter()
+    pulled = []
+    for i, text in enumerate(LLAVA_PROMPTS):
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, text))),
+                 "vision_embeds": torch.randn(1, cfg.vision_tokens, cfg.d_model, generator=gen,
+                                              device=dev) * 0.02}
+        tok, state = prefill_step(params, batch)
+        n_ctx = int(state.context_lens[0])
+        if n_ctx != cfg.vision_tokens + text:
+            raise AssertionError(f"phase 9: context {n_ctx} != {cfg.vision_tokens} + {text}")
+        snapshot = dataclasses.replace(state, k_pages=state.k_pages.clone(),
+                                       v_pages=state.v_pages.clone())
+        mono = decode_greedy(serve_step, params, state, tok, MAX_NEW)[0]
+        del state
+        n_pages = -(-n_ctx // model.BLOCK_SIZE)
+        blocks = [(7 + 3 * j) % 128 for j in range(n_pages)]  # scattered, distinct
+        landed, moved = link.pull(f"r{i}", snapshot, blocks, MAX_NEW)
+        want = L * n_pages * 2 * link.dec.block_nbytes
+        if moved != want or not torch.equal(landed.k_pages, snapshot.k_pages) \
+                or not torch.equal(landed.v_pages, snapshot.v_pages):
+            raise AssertionError(f"phase 9: pulled {moved} B (want {want}) or pages differ")
+        got = decode_greedy(serve_step, params, landed, tok, MAX_NEW)[0]
+        if got != mono:
+            raise AssertionError(f"phase 9: {text}-token prompt: pulled {got} != monolithic "
+                                 f"{mono}")
+        pulled.append(moved)
+        log(f"phase 9: {cfg.vision_tokens} image + {text} text tokens = {n_pages} pages a "
+            f"layer, pulled {moved} B; tokens {got} == monolithic")
+        del snapshot, landed
+    torch.cuda.synchronize()
+    counts = expect_counts("phase 9: llava prefill, pull, decode", read_counts(), {
+        "flash_prefill": L * n, "paged_attention": 2 * L * MAX_NEW * n, "kv_pull": n,
+        "kv_pull_dequant": 0, "ssd_scan": 0})
+    log(f"phase 9: {n} requests in {time.perf_counter() - t0:.1f}s")
+    del params, model, link
+    free_model()
+    return counts, pulled
+
+
+def phase_whisper(dev):
+    """Phase 10: whisper-large-v3 at full width (32 + 32 layers) over 1500
+    seeded frames, decoder prompts of 4, 33 and 130 tokens, 8 new tokens
+    each, through launch.steps; then with the weights in f32,
+    prefill(p) + decode_step(t) against prefill(p + t).  Returns the launch
+    counts of the bf16 run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("whisper-large-v3")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"phase 10: {cfg.describe()} + {cfg.encoder_layers} encoder layers; weights in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(3)
+    frames = torch.randn(1, cfg.encoder_seq, cfg.d_model,
+                         generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in WHISPER_PROMPTS]
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    L, n = cfg.num_layers, len(prompts)
+    reset_counts()
+    t0 = time.perf_counter()
+    for tokens in prompts:
+        tok, state = prefill_step(params, {"frames": frames,
+                                           "tokens": torch.as_tensor(tokens[None])})
+        if tuple(state.cross_k.shape) != (L, 1, cfg.encoder_seq, cfg.num_kv_heads,
+                                          cfg.head_dim):
+            raise AssertionError(f"phase 10: cross_k {tuple(state.cross_k.shape)}")
+        out = decode_greedy(serve_step, params, state, tok, MAX_NEW)[0]
+        if len(out) != MAX_NEW + 1 or not all(0 <= x < cfg.vocab_size for x in out):
+            raise AssertionError(f"phase 10: tokens {out}")
+        log(f"phase 10: {len(tokens)}-token prompt over {cfg.encoder_seq} frames: tokens {out}")
+    torch.cuda.synchronize()
+    enc_and_dec = cfg.encoder_layers + 2 * L  # encoder, decoder self and cross
+    counts = expect_counts("phase 10: whisper", read_counts(), {
+        "flash_prefill": n * (enc_and_dec + L * MAX_NEW), "paged_attention": n * L * MAX_NEW,
+        "kv_pull": 0, "kv_pull_dequant": 0, "ssd_scan": 0})
+    log(f"phase 10: {n} prompts in {time.perf_counter() - t0:.1f}s")
+    p32 = cast_tree(params, torch.float32)
+    del params
+    consistency_f32(model, p32, prompts[1], "phase 10: whisper-large-v3",
+                    extra={"frames": frames})
+    del p32, model
+    free_model()
+    return counts
+
+
 # ------------------------------------------------------------ phase 5
 def time_ms(fn, iters=50, warmup=3):
     """Device time of one call: ``iters`` calls captured in one CUDA graph,
@@ -1055,15 +1323,16 @@ def ssd_time_row(gen, dev, s, nh, hd, ns, what):
               f"bound at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32")
 
 
-def paged_time_row(gen, dev, b, per, ctx_list, what):
-    """paged_attention at Yi-9B widths over ``ctx_list`` tokens, bf16."""
+def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI):
+    """paged_attention at ``widths`` (Yi-9B's by default) over ``ctx_list``
+    tokens, bf16."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-    h, g, d, bs = YI["h"], YI["g"], YI["d"], YI["bs"]
+    h, g, d, bs = widths["h"], widths["g"], widths["d"], 32
     bf = torch.bfloat16
     q = torch.randn(b, h, d, generator=gen, device=dev).to(bf)
     kp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(bf)
@@ -1096,32 +1365,35 @@ def paged_time_row(gen, dev, b, per, ctx_list, what):
     return row
 
 
-def prefill_time_row(gen, dev, s, what, plain_iters=50):
-    """flash_prefill at Yi-9B widths, one layer's causal prefill of s tokens."""
+def prefill_time_row(gen, dev, s, what, plain_iters=50, widths=YI, t=None, causal=True):
+    """flash_prefill at ``widths`` (Yi-9B's by default), one layer's
+    attention of s queries over t keys (t = s by default), bf16."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import dense_ref
 
-    h, g, d = YI["h"], YI["g"], YI["d"]
+    h, g, d = widths["h"], widths["g"], widths["d"]
+    t = s if t is None else t
     bf = torch.bfloat16
     qp = torch.randn(1, s, h, d, generator=gen, device=dev).to(bf)
-    kk = torch.randn(1, s, g, d, generator=gen, device=dev).to(bf)
-    vv = torch.randn(1, s, g, d, generator=gen, device=dev).to(bf)
+    kk = torch.randn(1, t, g, d, generator=gen, device=dev).to(bf)
+    vv = torch.randn(1, t, g, d, generator=gen, device=dev).to(bf)
     qs = qp.transpose(1, 2).contiguous()
     ks = kk.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
     vs = vv.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
-    visible = s * (s + 1) // 2
+    visible = s * (s + 1) // 2 if causal else s * t
     row = dict(
-        ms=time_ms(lambda: flash_prefill(qp, kk, vv, causal=True)),
-        call_ms=call_ms(lambda: flash_prefill(qp, kk, vv, causal=True)),
-        plain_ms=call_ms(lambda: dense_ref(qp, kk, vv, causal=True), iters=plain_iters,
+        ms=time_ms(lambda: flash_prefill(qp, kk, vv, causal=causal)),
+        call_ms=call_ms(lambda: flash_prefill(qp, kk, vv, causal=causal)),
+        plain_ms=call_ms(lambda: dense_ref(qp, kk, vv, causal=causal), iters=plain_iters,
                          warmup=min(3, plain_iters)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)),
+            qs, ks, vs, is_causal=causal)),
         bound=bound_ms((2 * qp.numel() + 2 * kk.numel()) * 2, 4 * h * d * visible),
-        shape=f"{what}: b=1 s={s} h={h} g={g} d={d} causal bf16"
+        shape=f"{what}: b=1 s={s} t={t} h={h} g={g} d={d} "
+              f"{'causal' if causal else 'non-causal'} bf16"
               + (f"; plain version timed over {plain_iters} calls" if plain_iters != 50 else ""))
     row["vs_library"] = row["ms"] / row["library_ms"]
     return row
@@ -1141,6 +1413,21 @@ def phase_times(gen, dev):
     rows["flash_prefill"] = prefill_time_row(gen, dev, max(PROMPTS), "yi-9b prefill")
     rows["flash_prefill"]["also"] = [prefill_time_row(gen, dev, LONG_PROMPT, "long prompt",
                                                       plain_iters=5)]
+    # the shapes of phases 8-10: whisper's decode (b = 1, its longest prompt's
+    # last step), encoder and cross-attention of a decode step; llava's
+    # image + text prefill
+    rows["paged_attention"]["also"].append(paged_time_row(
+        gen, dev, 1, -(-max(WHISPER_PROMPTS) // 32) + 16, [max(WHISPER_PROMPTS) + MAX_NEW],
+        "whisper-large-v3 decode", widths=WHISPER))
+    frames = WHISPER["frames"]
+    rows["flash_prefill"]["also"] += [
+        prefill_time_row(gen, dev, frames, "whisper-large-v3 encoder", widths=WHISPER,
+                         causal=False, plain_iters=5),
+        prefill_time_row(gen, dev, 1, "whisper-large-v3 decode cross-attention",
+                         widths=WHISPER, t=frames, causal=False),
+        prefill_time_row(gen, dev, LLAVA["vision"] + LLAVA_PROMPTS[0],
+                         "llava-next-mistral-7b image + text prefill", widths=LLAVA,
+                         plain_iters=5)]
     return rows | other_time_rows(gen, dev)
 
 
@@ -1272,6 +1559,25 @@ def main() -> int:
     hymba_counts = phase_hymba()
     torch.cuda.empty_cache()
     log(f"phase 7: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    moe_serve, moe_per_request, maverick_counts = phase_moe(dev)
+    log(f"phase 8: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    llava_counts, llava_pulled = phase_llava(dev)
+    log(f"phase 9: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    whisper_counts = phase_whisper(dev)
+    log(f"phase 10: {time.perf_counter() - t0:.1f}s")
+    # each kernel's launches in the new phases' runs, per request where the
+    # run served several
+    later = {
+        "phase 8 granite-moe launch.serve": moe_serve[False],
+        "phase 8 granite-moe launch.serve --quantize-transfer": moe_serve[True],
+        "phase 8 granite-moe per request (direct)": moe_per_request,
+        "phase 8 llama4-maverick (2 layers), 96 tokens + 8": maverick_counts,
+        "phase 9 llava, 2 requests": llava_counts,
+        "phase 10 whisper, 3 prompts + 8 tokens each": whisper_counts,
+    }
 
     t0 = time.perf_counter()
     rows = phase_times(gen, dev)
@@ -1289,6 +1595,9 @@ def main() -> int:
             launches = serve_counts[quantized][name]
             run = "launch.serve" + (" --quantize-transfer" if quantized else "")
             per = per_request[name]
+        extra["launches_later_phases"] = {run: c[name] for run, c in later.items()}
+        if name == "kv_pull":
+            extra["bytes_pulled_llava"] = llava_pulled
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_run": run, "launches_per_request": per,

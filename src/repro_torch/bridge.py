@@ -6,20 +6,23 @@ uses the same dict layout (dense ``w`` as ``[in, out]``, layers stacked
 ``[L, ...]``), so conversion is a leaf-by-leaf copy.  bf16 numpy arrays
 (numpy's ``bfloat16`` extension dtype) are carried bit for bit through
 their 16-bit pattern.  ``DecodeState`` converts both ways through all its
-fields: paged KV, ring KV, meta KV and SSM state.
+fields (paged KV, ring KV, meta KV and SSM state), and so does the
+encoder-decoder's ``EncDecState`` (self-KV pages and cross-attention KV).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.models.transformer import DecodeState
+from repro_torch.models.whisper import EncDecState
 
 __all__ = ["tensor_from_numpy", "params_from_jax", "state_from_jax", "state_to_numpy"]
 
-_STATE_FIELDS = ("context_lens", "k_pages", "v_pages", "block_tables", "ring_k",
-                 "ring_v", "ring_pos", "meta_k", "meta_v", "ssd_state", "conv_state")
-_KV_FIELDS = ("k_pages", "v_pages", "ring_k", "ring_v", "meta_k", "meta_v")
+_KV_FIELDS = ("k_pages", "v_pages", "ring_k", "ring_v", "meta_k", "meta_v", "cross_k",
+              "cross_v")
 
 
 def tensor_from_numpy(a, *, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -39,24 +42,27 @@ def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None):
     return tensor_from_numpy(tree, device=device, dtype=dtype)
 
 
-def state_from_jax(state, *, device="cpu", dtype: torch.dtype | None = None) -> DecodeState:
-    """A JAX ``DecodeState`` whose leaves are numpy arrays -> port state.
-    ``dtype`` applies to the KV tensors (pages, ring, meta) only: the SSD
-    state stays f32 and the conv state keeps its own dtype."""
+def state_from_jax(state, *, device="cpu", dtype: torch.dtype | None = None):
+    """A JAX ``DecodeState`` or ``EncDecState`` whose leaves are numpy
+    arrays -> the port's state of the same kind.  ``dtype`` applies to the
+    KV tensors (pages, ring, meta, cross) only: the SSD state stays f32
+    and the conv state keeps its own dtype."""
     def conv(name):
         a = getattr(state, name)
         if a is None:
             return None
         return tensor_from_numpy(a, device=device,
                                  dtype=dtype if name in _KV_FIELDS else None)
-    return DecodeState(**{f: conv(f) for f in _STATE_FIELDS})
+    cls = EncDecState if hasattr(state, "cross_k") else DecodeState
+    return cls(**{f.name: conv(f.name) for f in dataclasses.fields(cls)})
 
 
-def state_to_numpy(state: DecodeState) -> dict[str, np.ndarray | None]:
-    """Port state -> dict of numpy arrays (f32 for bf16 tensors), the
-    keyword arguments of the JAX ``DecodeState``."""
+def state_to_numpy(state) -> dict[str, np.ndarray | None]:
+    """Port state (``DecodeState`` or ``EncDecState``) -> dict of numpy
+    arrays (f32 for bf16 tensors), the keyword arguments of the JAX state
+    of the same kind."""
     out = {}
-    for f in _STATE_FIELDS:
+    for f in (f.name for f in dataclasses.fields(state)):
         t = getattr(state, f)
         if t is not None and t.dtype == torch.bfloat16:
             t = t.float()

@@ -5,11 +5,14 @@ the reference's layout: dense ``{"w": [in, out], "b"?}``, norms
 where numerics demand."""
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 PARAM_DTYPE = torch.bfloat16
 
-__all__ = ["PARAM_DTYPE", "normal_", "dense", "rmsnorm", "swiglu", "embed"]
+__all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "rmsnorm", "layernorm", "swiglu",
+           "gelu_mlp", "embed"]
 
 
 def normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
@@ -20,7 +23,26 @@ def normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tens
     return out
 
 
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, lead: tuple = (),
+               bias: bool = False, scale: float | None = None, device=None) -> dict:
+    """``{"w": [*lead, d_in, d_out]}`` (+ a zero ``"b"``) in PARAM_DTYPE,
+    N(0, 1) * scale (default d_in^-0.5), drawn one [d_in, d_out] matrix at
+    a time so that the f32 draw stays one matrix large."""
+    scale = d_in ** -0.5 if scale is None else scale
+    w = torch.empty((*lead, d_in, d_out), dtype=PARAM_DTYPE, device=device)
+    for idx in itertools.product(*map(range, lead)):
+        normal_(w[idx], gen, scale)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=PARAM_DTYPE, device=device)
+    return p
+
+
 def dense(p, x):
+    """``x @ w (+ b)``; bf16 activations meeting f32 weights are promoted
+    to f32 first, as the reference's matmul promotes them."""
+    if x.dtype != p["w"].dtype:
+        x = x.to(torch.promote_types(x.dtype, p["w"].dtype))
     y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
@@ -33,9 +55,24 @@ def rmsnorm(p, x, eps: float = 1e-5):
     return (h * p["scale"].float()).to(x.dtype)
 
 
+def layernorm(p, x, eps: float = 1e-5):
+    """Statistics in f32, then scale and bias, then a cast back."""
+    h = x.float()
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(h - mu), dim=-1, keepdim=True)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    return (h * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 def swiglu(p, x):
     h = torch.nn.functional.silu(dense(p["gate"], x)) * dense(p["up"], x)
     return dense(p["down"], h)
+
+
+def gelu_mlp(p, x):
+    """``down(gelu(up(x)))`` with the tanh form of GELU, which is
+    ``jax.nn.gelu``'s default (the erf form differs by up to about 1e-3)."""
+    return dense(p["down"], torch.nn.functional.gelu(dense(p["up"], x), approximate="tanh"))
 
 
 def embed(p, tokens):

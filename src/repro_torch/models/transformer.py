@@ -1,18 +1,22 @@
-"""Decoder-only LM for the dense, SSM and hybrid families — the port of
-``src/repro/models/transformer.py``.
+"""Decoder-only LM for the dense, MoE, VLM, SSM and hybrid families — the
+port of ``src/repro/models/transformer.py``.
 
 Covered: ``DecodeState`` (paged KV, sliding-window ring KV, meta-token KV,
-SSM state), ``init_params``, ``prefill`` (with the meta-token prefix),
-``decode_step`` and ``decode_step_layerwise`` (paged archs only, as in the
-reference).  Layers are a Python loop over params stacked ``[L, ...]``
-(the reference's ``lax.scan`` has no counterpart to gain here: PyTorch
-runs eagerly).  Prefill attention always goes through the flash_prefill
-kernel (with the sliding window and the always-visible meta prefix),
-decode attention over pages through the paged_attention kernel, the SSD
-scan of prefill through the ssd_scan kernel.  Ring-buffer decode
-attention is plain torch: the reference has no kernel for it.  MoE, VLM
-and encoder-decoder models raise ``NotImplementedError``: they are later
-slices (ROADMAP.md, queue 1 item 8).
+SSM state), ``init_params``, ``prefill`` (with the meta-token prefix and
+the VLM's early-fused ``vision_embeds``), ``decode_step`` and
+``decode_step_layerwise`` (paged archs only, as in the reference).  The
+params keep the reference's layout: ``layers`` stacked over
+``n_steps = L / group``, where a group is ``moe_every`` layers for
+interleaved MoE (MoE the last of each group, the others dense with
+``d_ff_dense``) and holds ``sub{i}`` dicts when it has more than one
+layer.  Layers are a Python loop over that stack (the reference's
+``lax.scan`` has no counterpart to gain here: PyTorch runs eagerly).
+Prefill attention always goes through the flash_prefill kernel (with the
+sliding window and the always-visible meta prefix), decode attention over
+pages through the paged_attention kernel, the SSD scan of prefill through
+the ssd_scan kernel.  Ring-buffer decode attention and the MoE dispatch
+are plain torch: the reference has no kernel for either.
+Encoder-decoder configs take ``models.whisper.EncDecLM``.
 
 Decode steps update the state's KV pages and ring buffers IN PLACE (the
 new token is written into the current page or ring slot of every layer)
@@ -29,10 +33,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVPages, paged_decode_with_write, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
-from repro_torch.models.layers import PARAM_DTYPE, dense, normal_, rmsnorm, swiglu
+from repro_torch.models.layers import (
+    PARAM_DTYPE, dense, dense_init, gelu_mlp, normal_, rmsnorm, swiglu)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import ssm_prefill, ssm_step
 
-__all__ = ["DecoderLM", "DecodeState", "stack_states"]
+__all__ = ["DecoderLM", "DecodeState", "paged_kv", "stack_states"]
 
 
 @dataclasses.dataclass
@@ -71,14 +77,19 @@ def stack_states(states) -> DecodeState:
     return DecodeState(**out)
 
 
-def _unsupported(cfg: ModelConfig) -> str | None:
-    if cfg.is_encoder_decoder:
-        return "encoder-decoder (EncDecLM)"
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        return f"family {cfg.family!r}"
-    if not cfg.has_attention and not cfg.has_ssm:
-        return "a model with neither attention nor SSM"
-    return None
+def paged_kv(k: torch.Tensor, v: torch.Tensor, block_size: int, margin: int):
+    """A prompt's KV [L, b, s, g, hd] -> (k_pages, v_pages [L, b, per_seq,
+    block_size, g, hd], block_tables [b, per_seq] int32): the prompt's
+    pages, then ``margin`` empty ones, with identity tables."""
+    L, b, s, g, hd = k.shape
+    per_seq = -(-s // block_size) + margin
+    k_pages = torch.zeros((L, b, per_seq * block_size, g, hd), dtype=k.dtype, device=k.device)
+    v_pages = torch.zeros_like(k_pages)
+    k_pages[:, :, :s] = k
+    v_pages[:, :, :s] = v
+    tables = torch.arange(per_seq, dtype=torch.int32, device=k.device)
+    return (k_pages.reshape(L, b, per_seq, block_size, g, hd),
+            v_pages.reshape(L, b, per_seq, block_size, g, hd), tables[None, :].repeat(b, 1))
 
 
 def _layer(tree, i: int):
@@ -91,16 +102,31 @@ class DecoderLM:
     BLOCK_SIZE = 32
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda"):
-        missing = _unsupported(cfg)
-        if missing is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} is not ported yet — the port covers the "
-                "dense, SSM and hybrid decoders (see ROADMAP.md, queue 1 item 8)")
+        if cfg.is_encoder_decoder:
+            raise ValueError("use EncDecLM for encoder-decoder configs")
         self.cfg = cfg
+        # scan unit: a group of `moe_every` layers for interleaved MoE
+        self.group = cfg.moe_every if (cfg.family == "moe" and cfg.moe_every > 1) else 1
+        if cfg.num_layers % self.group:
+            raise ValueError("num_layers must divide by moe_every")
+        self.n_steps = cfg.num_layers // self.group
         self.device = resolve_device(device)
 
-    def _ffn_kind(self) -> str:
-        return {"dense": "mlp", "hybrid": "mlp", "ssm": "none"}[self.cfg.family]
+    def _sub_kind(self, i: int) -> str:
+        """FFN kind of sub-layer i within a group: MoE is the LAST of each
+        group (Llama-4 places MoE on every `moe_every`-th layer)."""
+        if self.cfg.family != "moe":
+            return {"dense": "mlp", "vlm": "mlp", "hybrid": "mlp", "ssm": "none"}[
+                self.cfg.family]
+        return "moe" if i == self.group - 1 else "mlp"
+
+    def _sublayers(self, params):
+        """(layer index, that layer's params, its FFN kind) in depth order."""
+        for step in range(self.n_steps):
+            p = _layer(params["layers"], step)
+            for i in range(self.group):
+                yield (step * self.group + i, p if self.group == 1 else p[f"sub{i}"],
+                       self._sub_kind(i))
 
     # ------------------------------------------------------------- init
     def init_params(self, seed: int = 0, device: str | torch.device | None = None) -> dict:
@@ -112,57 +138,69 @@ class DecoderLM:
         cfg = self.cfg
         dev = self.device if device is None else resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        L, d, ff = cfg.num_layers, cfg.d_model, cfg.d_ff
+        d = cfg.d_model
+        if self.group == 1:
+            layers = self._init_sub(gen, dev, self._sub_kind(0))
+        else:
+            layers = {f"sub{i}": self._init_sub(gen, dev, self._sub_kind(i))
+                      for i in range(self.group)}
+        params = {
+            "embed": {"table": normal_(torch.empty((cfg.padded_vocab, d), dtype=PARAM_DTYPE,
+                                                   device=dev), gen, 0.02)},
+            "layers": layers,
+            "final_norm": {"scale": torch.ones(d, dtype=PARAM_DTYPE, device=dev)},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"table": normal_(torch.empty_like(params["embed"]["table"]),
+                                                  gen, 0.02)}
+        if cfg.num_meta_tokens:
+            params["meta"] = normal_(torch.empty((cfg.num_meta_tokens, d), dtype=PARAM_DTYPE,
+                                                 device=dev), gen, 0.02)
+        return params
 
-        def empty(*shape):
-            return torch.empty(shape, dtype=PARAM_DTYPE, device=dev)
-
-        def ones(*shape):
-            return torch.ones(shape, dtype=PARAM_DTYPE, device=dev)
+    def _init_sub(self, gen, dev, ffn_kind: str) -> dict:
+        """One sub-layer's params, stacked over the ``n_steps`` groups."""
+        cfg = self.cfg
+        n, d = self.n_steps, cfg.d_model
 
         def stacked_dense(d_in, d_out):
-            w = empty(L, d_in, d_out)
-            for layer in range(L):  # one layer's f32 draw at a time
-                normal_(w[layer], gen, d_in ** -0.5)
-            return {"w": w}
+            return dense_init(gen, d_in, d_out, lead=(n,), device=dev)
 
-        layers: dict = {}
+        def norm():
+            return {"scale": torch.ones((n, d), dtype=PARAM_DTYPE, device=dev)}
+
+        p: dict = {}
         if cfg.has_attention:
-            layers["attn_norm"] = {"scale": ones(L, d)}
-            layers["attn"] = {
+            p["attn_norm"] = norm()
+            p["attn"] = {
                 "q": stacked_dense(d, cfg.attn_dim),
                 "k": stacked_dense(d, cfg.kv_dim),
                 "v": stacked_dense(d, cfg.kv_dim),
                 "o": stacked_dense(cfg.attn_dim, d),
             }
         if cfg.has_ssm:
-            layers["ssm_norm"] = {"scale": ones(L, d)}
-            layers["ssm"] = self._init_ssm(gen, dev, stacked_dense)
+            p["ssm_norm"] = norm()
+            p["ssm"] = self._init_ssm(gen, dev, stacked_dense)
         if cfg.family == "hybrid":
-            layers["attn_out_norm"] = {"scale": ones(L, d)}
-            layers["ssm_out_norm"] = {"scale": ones(L, d)}
-        if self._ffn_kind() == "mlp":
-            layers["mlp_norm"] = {"scale": ones(L, d)}
+            p["attn_out_norm"] = norm()
+            p["ssm_out_norm"] = norm()
+        if ffn_kind == "moe":
+            p["mlp_norm"] = norm()
+            p["moe"] = moe_init(cfg, gen, lead=(n,), device=dev)
+        elif ffn_kind == "mlp":
+            ff = cfg.d_ff_dense if (cfg.family == "moe" and cfg.d_ff_dense) else cfg.d_ff
+            p["mlp_norm"] = norm()
             if cfg.mlp_type == "swiglu":
-                layers["mlp"] = {"gate": stacked_dense(d, ff), "up": stacked_dense(d, ff),
-                                 "down": stacked_dense(ff, d)}
+                p["mlp"] = {"gate": stacked_dense(d, ff), "up": stacked_dense(d, ff),
+                            "down": stacked_dense(ff, d)}
             else:
-                layers["mlp"] = {"up": stacked_dense(d, ff), "down": stacked_dense(ff, d)}
-        params = {
-            "embed": {"table": normal_(empty(cfg.padded_vocab, d), gen, 0.02)},
-            "layers": layers,
-            "final_norm": {"scale": ones(d)},
-        }
-        if not cfg.tie_embeddings:
-            params["lm_head"] = {"table": normal_(empty(cfg.padded_vocab, d), gen, 0.02)}
-        if cfg.num_meta_tokens:
-            params["meta"] = normal_(empty(cfg.num_meta_tokens, d), gen, 0.02)
-        return params
+                p["mlp"] = {"up": stacked_dense(d, ff), "down": stacked_dense(ff, d)}
+        return p
 
     def _init_ssm(self, gen, dev, stacked_dense) -> dict:
         """``repro.models.ssm.ssm_init``, stacked over layers."""
         cfg = self.cfg
-        L, d = cfg.num_layers, cfg.d_model
+        L, d = self.n_steps, cfg.d_model
         di, ns, nh = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads
         conv_dim = di + 2 * ns  # x, B, C share the depthwise conv (ngroups=1)
         conv_w = torch.empty((L, cfg.ssm_conv, conv_dim), dtype=PARAM_DTYPE, device=dev)
@@ -180,11 +218,18 @@ class DecoderLM:
             "out_proj": stacked_dense(di, d),
         }
 
-    def _apply_mlp(self, p, x):
+    def _apply_ffn(self, p, x, ffn_kind: str):
+        """The residual branch of the sub-layer's FFN on x [..., d]: a dense
+        MLP, or MoE over x as one row of tokens per leading index (the
+        decode step's [b, d] as b rows of one token, as the reference's
+        ``[:, None, :]``)."""
+        hn = rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
+        if ffn_kind == "moe":
+            y, _ = moe_apply(p["moe"], hn if hn.dim() == 3 else hn[:, None, :], self.cfg)
+            return y if x.dim() == 3 else y[:, 0]
         if self.cfg.mlp_type == "swiglu":
-            return swiglu(p["mlp"], x)
-        up = dense(p["mlp"]["up"], x)
-        return dense(p["mlp"]["down"], torch.nn.functional.gelu(up, approximate="tanh"))
+            return swiglu(p["mlp"], hn)
+        return gelu_mlp(p["mlp"], hn)
 
     def _mix(self, p, outs: dict):
         """The token mixers' sum into the residual: the one branch, or the
@@ -204,7 +249,7 @@ class DecoderLM:
         return torch.as_tensor(tokens, device=self.device).long()
 
     # ------------------------------------------------- full-seq forward
-    def _sub_full(self, p, x, positions):
+    def _sub_full(self, p, x, positions, ffn_kind: str):
         cfg = self.cfg
         outs, caches = {}, {}
         if cfg.has_attention:
@@ -223,36 +268,44 @@ class DecoderLM:
             h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
             outs["ssm"], (caches["ssd"], caches["conv"]) = ssm_prefill(p["ssm"], h, cfg)
         x = x + self._mix(p, outs)
-        if self._ffn_kind() == "mlp":
-            x = x + self._apply_mlp(p, rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+        if ffn_kind != "none":
+            x = x + self._apply_ffn(p, x, ffn_kind)
         return x, caches
 
-    def _embed_inputs(self, params, tokens):
-        """Token embeddings with the meta-token prefix in front (hymba).
-        Returns (x, offset) where offset is where text starts."""
+    def _embed_inputs(self, params, tokens, vision_embeds=None):
+        """Token embeddings, with the VLM's image embeddings early-fused in
+        front of the text (cast to the embedding dtype) and the meta-token
+        prefix in front of everything (hymba).  Returns (x, offset) where
+        offset is where text starts."""
         cfg = self.cfg
         x = params["embed"]["table"][tokens]
-        if not cfg.num_meta_tokens:
-            return x, 0
-        meta = params["meta"][None].expand(x.shape[0], -1, -1).to(x.dtype)
-        return torch.cat([meta, x], dim=1), cfg.num_meta_tokens
+        offset = 0
+        if cfg.family == "vlm" and vision_embeds is not None:
+            vis = torch.as_tensor(vision_embeds, device=self.device).to(x.dtype)
+            x = torch.cat([vis, x], dim=1)
+            offset += vis.shape[1]
+        if cfg.num_meta_tokens:
+            meta = params["meta"][None].expand(x.shape[0], -1, -1).to(x.dtype)
+            x = torch.cat([meta, x], dim=1)
+            offset += cfg.num_meta_tokens
+        return x, offset
 
     # ---------------------------------------------------------- prefill
     def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True):
-        """Run the prompt, return (last-token logits, DecodeState).
-        ``remat`` is accepted for call compatibility; there is no
-        backward here to rematerialize for."""
+        """Run the prompt (image tokens of a VLM batch's ``vision_embeds``
+        first), return (last-token logits, DecodeState); context lengths
+        and positions count the image tokens.  ``remat`` is accepted for
+        call compatibility; there is no backward here to rematerialize
+        for."""
         del remat
-        if batch.get("vision_embeds") is not None:
-            raise NotImplementedError("VLM vision_embeds are not ported yet (ROADMAP.md)")
         tokens = self._tokens(batch["tokens"])
         b = tokens.shape[0]
-        x, _ = self._embed_inputs(params, tokens)
+        x, _ = self._embed_inputs(params, tokens, batch.get("vision_embeds"))
         s_total = x.shape[1]
         positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
         per_layer = []
-        for layer in range(self.cfg.num_layers):
-            x, caches = self._sub_full(_layer(params["layers"], layer), x, positions)
+        for _, p, kind in self._sublayers(params):
+            x, caches = self._sub_full(p, x, positions, kind)
             per_layer.append(caches)
         caches = {key: torch.stack([c[key] for c in per_layer]) for key in per_layer[0]}
         del per_layer
@@ -291,16 +344,7 @@ class DecoderLM:
                 state.ring_pos = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
                 state.ring_pos[:, slots] = tail_pos.to(torch.int32)
             else:
-                s = k.shape[2]
-                per_seq = -(-s // bs) + margin
-                k_pages = torch.zeros((L, b, per_seq * bs, g, hd), dtype=k.dtype, device=dev)
-                v_pages = torch.zeros_like(k_pages)
-                k_pages[:, :, :s] = k
-                v_pages[:, :, :s] = v
-                tables = torch.arange(per_seq, dtype=torch.int32, device=dev)
-                state.k_pages = k_pages.reshape(L, b, per_seq, bs, g, hd)
-                state.v_pages = v_pages.reshape(L, b, per_seq, bs, g, hd)
-                state.block_tables = tables[None, :].repeat(b, 1)
+                state.k_pages, state.v_pages, state.block_tables = paged_kv(k, v, bs, margin)
         if cfg.has_ssm:
             state.ssd_state = caches["ssd"]    # [L, b, nh, hd, ns]
             state.conv_state = caches["conv"]  # [L, b, k-1, c]
@@ -318,7 +362,8 @@ class DecoderLM:
         k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
         return q, k, v[:, 0]
 
-    def _sub_decode(self, p, h, state: DecodeState, layer: int, pages: KVPages | None):
+    def _sub_decode(self, p, h, state: DecodeState, layer: int, pages: KVPages | None,
+                    ffn_kind: str):
         """One layer of one decode step.  ``pages``: this layer's KV pages
         (paged archs); ring slots are written in place; returns (h, pages,
         (ssd, conv) or None)."""
@@ -339,8 +384,8 @@ class DecoderLM:
             outs["ssm"], ssm_state = ssm_step(
                 p["ssm"], hn, cfg, (state.ssd_state[layer], state.conv_state[layer]))
         h = h + self._mix(p, outs)
-        if self._ffn_kind() == "mlp":
-            h = h + self._apply_mlp(p, rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
+        if ffn_kind != "none":
+            h = h + self._apply_ffn(p, h, ffn_kind)
         return h, pages, ssm_state
 
     def _ring_attention(self, q, k_new, v_new, state: DecodeState, layer: int):
@@ -384,12 +429,11 @@ class DecoderLM:
             new.ring_pos = state.ring_pos.clone()
             new.ring_pos[rows, (pos % new.ring_pos.shape[1]).long()] = pos
         ssd, conv = [], []
-        for layer in range(cfg.num_layers):
+        for layer, p, kind in self._sublayers(params):
             pages = None
             if state.k_pages is not None:
                 pages = KVPages(state.k_pages[layer], state.v_pages[layer])
-            x, _, ssm_state = self._sub_decode(_layer(params["layers"], layer), x, new,
-                                               layer, pages)
+            x, _, ssm_state = self._sub_decode(p, x, new, layer, pages, kind)
             if ssm_state is not None:
                 ssd.append(ssm_state[0])
                 conv.append(ssm_state[1])
@@ -415,10 +459,9 @@ class DecoderLM:
                 "caches have no layer-streamed pull to consume")
         x = params["embed"]["table"][self._tokens(tokens)]
         new_k, new_v = [], []
-        for layer in range(cfg.num_layers):
+        for layer, p, kind in self._sublayers(params):
             pages = KVPages(*fetch_layer(layer))
-            x, pages, _ = self._sub_decode(_layer(params["layers"], layer), x, state, layer,
-                                           pages)
+            x, pages, _ = self._sub_decode(p, x, state, layer, pages, kind)
             new_k.append(pages.k_pages)
             new_v.append(pages.v_pages)
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -124,6 +124,23 @@ def test_paged_attention_yi_grid(gen):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_whisper_mha(gen, dtype):
+    """whisper-large-v3's decode: h = g = 20 (one query head a kv-head, a
+    block of 8 head slots with 7 masked), d = 64; contexts of its prompts
+    4, 33 and 130 after 8 steps."""
+    paged_case(gen, 3, 20, 20, 64, 21, 32, [12, 41, 138], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_maverick_gqa(gen, dtype):
+    """llama4-maverick's decode: h/g = 40/8 (5 query heads a kv-head) at
+    d = 128, its 96-token prompt after 8 steps in 3 + 16 pages of 32."""
+    paged_case(gen, 1, 40, 8, 128, 19, 32, [104], dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,design", [("paged_attention", paged_ops.DESIGN),
                                          ("flash_prefill", flash_ops.DESIGN),
                                          ("ssd_scan", ssd_ops.DESIGN)])
@@ -199,6 +216,61 @@ def test_flash_prefill_bf16_long(gen):
                                 dict(causal=False, sliding_window=70, prefix_len=9)])
 def test_flash_prefill_bf16_masks(gen, kw):
     prefill_case(gen, 2, 333, 4, 2, 64, torch.bfloat16, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,h,g,d", [(96, 40, 8, 128), (4, 20, 20, 64), (33, 20, 20, 64),
+                                     (130, 20, 20, 64)])
+def test_flash_prefill_main_path_prompts(gen, s, h, g, d, dtype):
+    """The causal prompts of llama4-maverick (96 tokens, h/g = 40/8 at
+    d = 128) and of whisper's decoder (4, 33 and 130 tokens, MHA 20/20 at
+    d = 64), at b = 1 as the main path runs them."""
+    prefill_case(gen, 1, s, h, g, d, dtype, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(20, 64), (16, 128)])
+@pytest.mark.parametrize("s", [1500, 33, 1, 130, 4])
+def test_flash_prefill_non_causal_over_1500_keys(gen, s, h, d, dtype):
+    """whisper's encoder (s = t = 1500) and its cross-attention at prefill
+    (s = 4, 33, 130, its decoder prompts) and at a decode step (s = 1):
+    non-causal, s != t, and t = 1500 not a multiple of the 64-row tile."""
+    q = randn(gen, 1, s, h, d, dtype=dtype)
+    k, v = randn(gen, 1, 1500, h, d, dtype=dtype), randn(gen, 1, 1500, h, d, dtype=dtype)
+    out = flash_prefill(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), dense_ref(q, k, v, causal=False).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_the_card_matches_its_cpu_run(gen, dtype):
+    """granite-moe-3b-a800m's MoE layer at full width (d 1536, 40 experts
+    top-8 padded to 48, ff 512) on 96 tokens (3 groups of 32): the card's
+    routing equals the CPU's, the outputs agree (f32 2e-4, bf16 2e-2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-3b-a800m")
+    p = moe.moe_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    p = {k: ({kk: vv.to(dtype) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dtype))
+         for k, v in p.items()}
+    x = randn(gen, 1, 96, cfg.d_model, dtype=dtype)
+    out, aux = moe.moe_apply(p, x, cfg)
+    torch.cuda.synchronize()
+    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu())
+             for k, v in p.items()}
+    ref, ref_aux = moe.moe_apply(p_cpu, x.cpu(), cfg)
+    cap = moe.capacity(32, cfg.experts_per_token, cfg.num_experts, cfg.capacity_factor)
+    r = moe.moe_route(p, x.reshape(3, 32, -1), cfg, cap)
+    r_cpu = moe.moe_route(p_cpu, x.cpu().reshape(3, 32, -1), cfg, cap)
+    assert torch.equal(r.top_idx.cpu(), r_cpu.top_idx) and torch.equal(r.keep.cpu(), r_cpu.keep)
+    assert int(r.top_idx.max()) < cfg.num_experts
+    torch.testing.assert_close(out.cpu().float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(aux.cpu(), ref_aux, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from repro.models import attention as jax_attention
 from repro.models.layers import rmsnorm as jax_rmsnorm
 from repro.models.transformer import DecoderLM as JaxDecoderLM
 from repro_torch import bridge
+from repro_torch.configs import ARCHS
 from repro_torch.configs import get_smoke_config as pt_smoke_config
 from repro_torch.models import attention
 from repro_torch.models.layers import rmsnorm
@@ -155,9 +156,20 @@ class TestDecoderParity:
             np.testing.assert_array_equal(back[name], np.asarray(getattr(js, name)))
 
 
-class TestUnported:
-    @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "llava-next-mistral-7b",
-                                      "whisper-large-v3"])
-    def test_other_families_raise_not_implemented(self, arch):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(pt_smoke_config(arch), device="cpu")
+class TestEveryArch:
+    @pytest.mark.parametrize("arch", list(ARCHS))
+    def test_builds_prefills_and_decodes(self, arch):
+        """Every config of the port builds (none is refused) and its smoke
+        size prefills and takes a decode step on the CPU."""
+        cfg = pt_smoke_config(arch)
+        model = build_model(cfg, device="cpu")
+        params = model.init_params(0)
+        rng = np.random.default_rng(7)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 9)))}
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.from_numpy(
+                rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        logits, state = model.prefill(params, batch)
+        logits, state = model.decode_step(params, state, torch.argmax(logits, dim=-1))
+        assert logits.shape == (2, cfg.padded_vocab) and torch.isfinite(logits.float()).all()
+        assert state.context_lens.tolist() == [10 + cfg.num_meta_tokens] * 2
