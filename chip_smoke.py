@@ -21,12 +21,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    paged_attention at granite-moe's GQA 24/8, whisper's MHA 20/20 (d 64)
    and llava's 3018-token context, flash_prefill non-causal over 1500 keys
    (s = 1500, 33, 1; d 64 and 128), at granite-moe's prompts and at
-   llava's 2976 and 3010 tokens.  Phase 1 also fails unless the SASS of
+   llava's 2976 and 3010 tokens.  The training path's attention:
+   flash_prefill's lse output against the plain ``_fwd_scan`` port (its
+   out path unchanged, bit for bit), and the autograd Function's dq, dk,
+   dv (the kernel forward, the plain-torch backward) against autograd
+   through the plain version, at Yi-9B s = 257 and 2048, whisper's
+   encoder and hymba's window + prefix, f32 and bf16.  Phase 1 also fails unless the SASS of
    the ssd_scan kernels that multiply holds tensor-core (HMMA)
    instructions.
 3. Serve through the normal entry point: ``repro_torch.launch.serve`` at
    the full Yi-9B config (48 layers, d_model 4096, random weights), once
    plain and once with ``--quantize-transfer``.
+   3b. Yi-9B once more through ``launch.serve --topology hetero_rack:0``:
+   roles planned over a generated heterogeneous rack, each worker's pool
+   sized by its machine's VRAM (both printed); the tokens must equal
+   monolithic runs on the same weights.
 4. Serve directly: a ``DisaggService`` with 2 prefill and 1 decode
    workers on ragged prompts (96, 130, 257 tokens).  One at a time, every
    request's tokens must equal a monolithic prefill + decode_step run on
@@ -72,11 +81,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    f32, prefill(p) + decode_step(t) against prefill(p + t).
    Phases 8-10 zero and check their own launch counts, as 3-7 do, and
    free each model before the next is built.
+11. Training: granite-moe-3b-a800m at its full config (every layer and
+   expert) through ``launch.train``, batch 4 x 512, 6 steps, the losses
+   finite and falling; then, at its full width cut to 8 layers (the full
+   state's 55.7 GB checkpoint exceeds what a run may write to the
+   machine's disk), 6 steps, and 3 steps with a checkpoint at step 3 and
+   a ``--resume`` run: the resumed losses equal the uninterrupted run's
+   bit for bit.  Then
+   Yi-9B at full width cut to 16 layers through ``make_train_step``, two
+   steps at s = 2048 (flash_prefill exactly layers x steps x 2 times under
+   remat), and a 2-layer f32 cut's step through the kernel against one
+   through the plain versions (loss 1e-5, grad norm 1e-4 relative).  Step
+   times, tokens a second and peak memory beside the card's name and
+   power limit.
 5. Times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call computing the same function (none computes the
    SSD scan), and the bound; for ssd_scan also each of its launches'
    device time (torch.profiler); and rows at whisper's decode, encoder and
-   decode cross-attention and llava's 2976-token prefill.
+   decode cross-attention and llava's 2976-token prefill; flash_prefill's
+   forward with lse at Yi-9B s = 2048 (beside the call without it) and the
+   training backward (plain torch after ``_bwd_scan``) at the same shape.
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -121,6 +145,24 @@ MAX_NEW = 8
 BF16_HEAD_DIMS = (32, 64, 128)     # flash_prefill's tensor-core kernels
 LONG_PROMPT = 4096                 # the longer rows of phase 5
 LONG_CTX = 4096
+TRAIN_SEQ = 2048                   # the Yi-9B training cut's length
+# (b, s, t, h, g, d, kwargs) of the training path's attention checks: Yi-9B
+# causal at a serving prompt and at TRAIN_SEQ, whisper's encoder, hymba's
+# window and meta prefix
+TRAIN_SHAPES = [
+    (1, 257, 257, 32, 4, 128, dict(causal=True)),
+    (1, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, dict(causal=True)),
+    (1, 1500, 1500, 20, 20, 64, dict(causal=False)),
+    (1, 1328, 1328, 25, 5, 64, dict(causal=True, sliding_window=1024, prefix_len=128)),
+]
+BWD_REL = {"float32": 2e-4, "bfloat16": 1e-2}   # flash backward, ||err|| / ||ref||
+GRANITE_TRAIN = ["--arch", "granite-moe-3b-a800m", "--batch", "4", "--seq", "512",
+                 "--lr", "3e-3"]
+GRANITE_CKPT_LAYERS = 8            # the checkpointed granite cut (17 GB on disk)
+YI_TRAIN_LAYERS = 16               # Yi-9B cut in depth for its train state to fit
+YI_TRAIN_BATCH = 2
+TRAIN_LOSS_RTOL = 1e-5             # kernel step vs plain step, f32 2-layer Yi cut
+TRAIN_GNORM_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -335,6 +377,55 @@ def check_flash_prefill(gen, dev):
         f"granite-moe 24/8 d 64, llama4-maverick 40/8 d 128, llava 32/8 d 128 at "
         f"{[LLAVA['vision'] + p for p in LLAVA_PROMPTS]} tokens")
     return err
+
+
+def check_flash_training(gen, dev):
+    """The training path's attention: the kernel's lse against the plain
+    ``_fwd_scan`` port's (the out path unchanged, bit for bit), and the
+    autograd Function's dq/dk/dv (the kernel forward, the torch backward)
+    against autograd through the plain version in f32, at TRAIN_SHAPES in
+    f32 and bf16.  Returns (max |lse err|, max ||grad err|| / ||ref||)."""
+    import torch
+
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import dense_ref
+    from repro_torch.models.flash import flash_attention, flash_forward_plain
+
+    lse_err = bwd_err = 0.0
+    for b, s, t, h, g, d, kw in TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            what = f"s={s} t={t} h={h} g={g} d={d} {name} {kw}"
+            q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, t, g, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, t, g, d, generator=gen, device=dev).to(dtype)
+            out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+            _, ref_lse = flash_forward_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, flash_prefill(q, k, v, **kw)):
+                raise AssertionError(f"flash_prefill {what}: out with lse != out without")
+            lse_err = max(lse_err, close(lse, ref_lse, TOL[name], f"flash_prefill lse {what}"))
+            dout = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+            xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            flash_attention(*xs, **kw).backward(dout)
+            refs = [x.float().requires_grad_(True) for x in (q, k, v)]
+            dense_ref(*refs, **kw).backward(dout.float())
+            torch.cuda.synchronize()
+            for n, x, r in zip("qkv", xs, refs):
+                if not torch.isfinite(x.grad).all():
+                    raise AssertionError(f"flash backward {what}: non-finite d{n}")
+                rel = float((x.grad.float() - r.grad).norm() / r.grad.norm())
+                if not rel <= BWD_REL[name]:
+                    raise AssertionError(f"flash backward {what}: d{n} ||err|| / ||ref|| "
+                                         f"{rel} above {BWD_REL[name]}")
+                bwd_err = max(bwd_err, rel)
+            del xs, refs
+    log(f"phase 2: flash_prefill lse (f32 [b, h, s]) against the plain _fwd_scan and the "
+        f"flash backward (kernel forward + torch backward) against autograd through the "
+        f"plain version at {[(s, h, g, d) for _, s, _, h, g, d, _ in TRAIN_SHAPES]}, f32 "
+        f"and bf16: max |lse err| {lse_err:.3e}, max ||dq,dk,dv err|| / ||ref|| "
+        f"{bwd_err:.3e} (limits {BWD_REL})")
+    return lse_err, bwd_err
 
 
 def check_kv_pull(gen, dev):
@@ -704,6 +795,39 @@ def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "ph
         f"with full precision per request {agree}/{MAX_NEW + 1}")
     del svc, hs
     return serve_counts, per_request
+
+
+def phase_topology(model, params):
+    """Phase 3b: Yi-9B served through ``launch.serve --topology
+    hetero_rack:0`` (roles planned over a generated heterogeneous rack,
+    pools sized by each machine's VRAM, links priced in the router); every
+    request's tokens must equal a monolithic run on the same weights (the
+    launcher's weights are this model's: seed 0 on the same card).
+    Returns the run's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)  # the launcher's prompts, drawn the same way
+    shared = rng.integers(0, cfg.vocab_size, 0).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 96).astype(np.int32)])
+               for _ in range(3)]
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = serve.main(["--arch", "yi-9b", "--requests", "3", "--prompt-len", "96",
+                       "--max-new", str(MAX_NEW), "--topology", "hetero_rack:0"])
+    torch.cuda.synchronize()
+    counts = expect_launches("phase 3b: launch.serve --topology hetero_rack:0", read_counts(),
+                             cfg.num_layers, 3, 3 * MAX_NEW, False)
+    for tokens, got in zip(prompts, outs):
+        ref = monolithic_generate(model, params, tokens, MAX_NEW)
+        if got != ref:
+            raise AssertionError(f"phase 3b: topology-bound {got} != monolithic {ref}")
+    log(f"phase 3b: 3 requests through the topology-bound service in "
+        f"{time.perf_counter() - t0:.1f}s; tokens equal the monolithic ones")
+    return counts
 
 
 # --------------------------------------------------------- phases 6-7
@@ -1210,6 +1334,170 @@ def phase_whisper(dev):
     return counts
 
 
+# ------------------------------------------------------------ phase 11
+def phase_train_granite(card):
+    """Phase 11a: granite-moe-3b-a800m at its full config (32 layers, all
+    48 padded experts) through ``launch.train``, 6 steps: losses finite and
+    falling, flash_prefill exactly layers x steps x 2 (remat).  Then the
+    checkpoint and restart, at the full width cut to GRANITE_CKPT_LAYERS
+    layers (the full train state's checkpoint, 55.7 GB, is more than a
+    card machine may write to its disk in one run, 45 GiB): 6 steps
+    uninterrupted; 3 steps with a checkpoint at step 3 and a ``--resume``
+    run of the other 3 (warmup is 10 steps, so the first steps' learning
+    rates do not depend on ``--steps``).  The resumed losses must equal
+    the uninterrupted run's bit for bit.  Returns the full run's launch
+    counts and its numbers."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    arch = "granite-moe-3b-a800m"
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    full = train.main(GRANITE_TRAIN + ["--steps", "6"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    L = get_config(arch).num_layers
+    counts = expect_counts(f"phase 11: launch.train {arch}, 6 steps", read_counts(), {
+        "flash_prefill": L * 6 * 2, "paged_attention": 0, "kv_pull": 0, "kv_pull_dequant": 0,
+        "ssd_scan": 0})  # remat: the forward runs twice a layer a step
+    free_model()
+    losses = full["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 11: granite losses {losses}: not finite and falling")
+    step_s = float(np.median(full["step_s"][1:]))
+    tokens = 4 * 512
+    log(f"phase 11: {arch} full config, batch 4 x 512, remat: losses {losses} (finite, "
+        f"falling); step {step_s:.4f} s (median of steps 2-6; first {full['step_s'][0]:.4f} "
+        f"s), {tokens / step_s:.0f} tokens/s, peak {peak / 1e9:.2f} GB allocated; {card}")
+
+    cut = dataclasses.replace(get_config(arch), num_layers=GRANITE_CKPT_LAYERS)
+    ckpt = ROOT / "build" / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launcher_config = train.get_config
+    train.get_config = lambda name: cut
+    try:
+        ref = train.main(GRANITE_TRAIN + ["--steps", "6"])["losses"]
+        free_model()
+        t0 = time.perf_counter()
+        first = train.main(GRANITE_TRAIN + ["--steps", "3", "--ckpt-dir", str(ckpt),
+                                            "--ckpt-every", "3"])["losses"]
+        free_model()
+        t_save = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        rest = train.main(GRANITE_TRAIN + ["--steps", "6", "--ckpt-dir", str(ckpt),
+                                           "--ckpt-every", "100", "--resume"])["losses"]
+        free_model()
+        t_resume = time.perf_counter() - t0
+    finally:
+        train.get_config = launcher_config
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if first + rest != ref:
+        raise AssertionError(f"phase 11: resumed losses {first + rest} != uninterrupted {ref}")
+    log(f"phase 11: {arch} cut to {GRANITE_CKPT_LAYERS} layers: losses {ref}; 3 steps + "
+        f"checkpoint ({ckpt_bytes / 1e9:.2f} GB, the run with its save {t_save:.1f} s) + "
+        f"--resume (with its restore {t_resume:.1f} s) gave the same losses bit for bit")
+    return counts, {"losses": losses, "step_s": step_s, "tokens_per_s": tokens / step_s,
+                    "peak_gb": peak / 1e9, "checkpoint_gb": ckpt_bytes / 1e9}
+
+
+def phase_train_yi(dev, card):
+    """Phase 11b: Yi-9B at full width cut to YI_TRAIN_LAYERS layers, two
+    make_train_step steps at s = TRAIN_SEQ, b = YI_TRAIN_BATCH (remat:
+    flash_prefill exactly layers x steps x 2 times); then a 2-layer f32 cut
+    of the same widths, one step through the kernel and one through the
+    plain versions (flash_prefill's plain forward; the backward is plain
+    torch either way) from the same state: loss within TRAIN_LOSS_RTOL and
+    grad norm within TRAIN_GNORM_RTOL."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.flash as flash_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.flash_prefill.ref import dense_ref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=YI_TRAIN_LAYERS)
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=2)
+    data = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, YI_TRAIN_BATCH)
+    model = build_model(cfg)
+    params = model.init_params(0)
+    opt = adamw_init(params, ocfg)
+    n_params = sum(p.numel() for p in leaves(params))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = make_train_step(model, ocfg, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(2):
+        batch = {"tokens": torch.as_tensor(data.next_batch()["tokens"], device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = expect_counts(
+        f"phase 11: yi-9b {YI_TRAIN_LAYERS} layers, 2 train steps at s = {TRAIN_SEQ}",
+        read_counts(), {"flash_prefill": YI_TRAIN_LAYERS * 2 * 2, "paged_attention": 0,
+                        "kv_pull": 0, "kv_pull_dequant": 0, "ssd_scan": 0})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 11: yi-9b cut losses {losses}")
+    tokens = YI_TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 11: {cfg.describe()} (depth cut 48 -> {YI_TRAIN_LAYERS}), "
+        f"{n_params / 1e9:.3f}e9 params, train state {state_gb:.1f} GB before the first "
+        f"step; batch {YI_TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; step {times[1]:.4f} s "
+        f"(first {times[0]:.4f} s), {tokens / times[1]:.0f} tokens/s, peak "
+        f"{peak / 1e9:.2f} GB allocated; {card}")
+    del params, opt, m, model, step
+    free_model()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(cfg2)
+    batch = {"tokens": torch.as_tensor(data.next_batch()["tokens"][:1], device=dev)}
+    out = {}
+    kernel_fn = flash_mod.flash_prefill
+    for route in ("kernel", "plain"):
+        params = cast_tree(model.init_params(0), torch.float32)
+        opt = adamw_init(params, ocfg)
+        if route == "plain":
+            flash_mod.flash_prefill = lambda q, k, v, **kw: dense_ref(q, k, v, **kw)
+        reset_counts()
+        try:
+            _, _, m = make_train_step(model, ocfg, remat=True)(params, opt, batch)
+        finally:
+            flash_mod.flash_prefill = kernel_fn
+        got = read_counts()["flash_prefill"]
+        if got != (2 * 2 if route == "kernel" else 0):
+            raise AssertionError(f"phase 11: f32 2-layer {route} step: flash_prefill {got}")
+        out[route] = (float(m["loss"]), float(m["grad_norm"]))
+        del params, opt, m
+        free_model()
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    if abs(lk - lp) > TRAIN_LOSS_RTOL * abs(lp) or abs(gk - gp) > TRAIN_GNORM_RTOL * abs(gp):
+        raise AssertionError(f"phase 11: f32 2-layer step kernel {out['kernel']} != plain "
+                             f"{out['plain']}")
+    log(f"phase 11: yi-9b widths, 2 layers, f32, 1 x {TRAIN_SEQ}: kernel step loss {lk!r} "
+        f"grad norm {gk!r}; plain step loss {lp!r} grad norm {gp!r} (limits "
+        f"{TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL} relative)")
+    del model
+    free_model()
+    return counts, {"losses": losses, "step_s": times[1], "tokens_per_s": tokens / times[1],
+                    "peak_gb": peak / 1e9, "state_gb": state_gb, "f32_kernel_vs_plain": out}
+
+
 # ------------------------------------------------------------ phase 5
 def time_ms(fn, iters=50, warmup=3):
     """Device time of one call: ``iters`` calls captured in one CUDA graph,
@@ -1399,6 +1687,66 @@ def prefill_time_row(gen, dev, s, what, plain_iters=50, widths=YI, t=None, causa
     return row
 
 
+def train_time_rows(gen, dev):
+    """The training path's attention at Yi-9B widths and s = TRAIN_SEQ,
+    bf16, one layer: flash_prefill's forward with its lse output (and
+    without, the serving call), and the backward (plain torch after
+    ``_bwd_scan``; no Pallas counterpart) from the saved (q, k, v, out,
+    lse).  The backward's bound: 2.5x the forward's operations (dV, dP, dQ,
+    dK and the recomputed S), its bytes q, k, v, out, dout, lse read and
+    dq, dk, dv written.  Library calls: SDPA's forward, and its backward
+    through autograd (K/V repeated to the heads outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import dense_ref
+    from repro_torch.models.flash import _Blocks, _bwd_scan, flash_forward_plain
+
+    h, g, d, s = YI["h"], YI["g"], YI["d"], TRAIN_SEQ
+    bf = torch.bfloat16
+    q = torch.randn(1, s, h, d, generator=gen, device=dev).to(bf)
+    k = torch.randn(1, s, g, d, generator=gen, device=dev).to(bf)
+    v = torch.randn(1, s, g, d, generator=gen, device=dev).to(bf)
+    dout = torch.randn(1, s, h, d, generator=gen, device=dev).to(bf)
+    qs = q.transpose(1, 2).contiguous()
+    ks = k.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
+    flops = 4 * h * d * s * (s + 1) // 2
+    io = 2 * (2 * q.numel() + 2 * k.numel())
+    fwd = dict(
+        ms=time_ms(lambda: flash_prefill(q, k, v, causal=True, return_lse=True)),
+        ms_without_lse=time_ms(lambda: flash_prefill(q, k, v, causal=True)),
+        call_ms=call_ms(lambda: flash_prefill(q, k, v, causal=True, return_lse=True)),
+        plain_ms=call_ms(lambda: flash_forward_plain(q, k, v, causal=True), iters=5,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)),
+        bound=bound_ms(io + 4 * h * s, flops),
+        shape=f"yi-9b train forward with lse: b=1 s={s} h={h} g={g} d={d} causal bf16; "
+              f"plain version (the _fwd_scan port, 1024-row blocks) over 5 calls")
+    out, lse = flash_prefill(q, k, v, causal=True, return_lse=True)
+    blk = _Blocks(q, k, True, 0, 0, 1024, 1024)
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    ref_out = dense_ref(qr, kr, vr, causal=True)
+    qs, ks, vs = (x.requires_grad_(True) for x in (qs, ks, vs))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    dlib = dout.transpose(1, 2).contiguous()
+    bwd_ms = call_ms(lambda: _bwd_scan(q, k, v, out, lse, dout, blk), iters=5, warmup=1)
+    bwd = dict(
+        ms=bwd_ms, call_ms=bwd_ms,
+        plain_ms=call_ms(lambda: torch.autograd.grad(ref_out, (qr, kr, vr), dout,
+                                                     retain_graph=True), iters=5, warmup=1),
+        library_ms=call_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dlib,
+                                                       retain_graph=True)),
+        bound=bound_ms(2 * (2 * q.numel() + 2 * k.numel()) + 4 * h * s
+                       + 2 * (q.numel() + 2 * k.numel()), 2.5 * flops),
+        shape=f"yi-9b train backward (plain torch after _bwd_scan, f32 sums over 3 block "
+              f"pairs of 1024; no Pallas counterpart): b=1 s={s} h={h} g={g} d={d} causal "
+              f"bf16; timed from Python over 5 calls; plain = autograd through dense_ref; "
+              f"library = SDPA's backward through autograd")
+    return {"forward_lse": fwd, "backward": bwd}
+
+
 def phase_times(gen, dev):
     rows = {}
     # paged_attention: the batched decode step over the three prompts
@@ -1428,6 +1776,7 @@ def phase_times(gen, dev):
         prefill_time_row(gen, dev, LLAVA["vision"] + LLAVA_PROMPTS[0],
                          "llava-next-mistral-7b image + text prefill", widths=LLAVA,
                          plain_iters=5)]
+    rows["flash_prefill"]["training"] = train_time_rows(gen, dev)
     return rows | other_time_rows(gen, dev)
 
 
@@ -1530,6 +1879,7 @@ def main() -> int:
         "kv_pull_dequant": check_kv_pull_dequant(gen, dev),
         "ssd_scan": check_ssd_scan(gen, dev),
     }
+    lse_err, bwd_err = check_flash_training(gen, dev)
     log(f"phase 2: every kernel matches its plain version; max |err| at full width "
         f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}; "
         f"{time.perf_counter() - t0:.1f}s")
@@ -1547,6 +1897,7 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPTS]
     refs = [monolithic_generate(model, params, t, MAX_NEW) for t in prompts]
     serve_counts, per_request = phase_serve(model, params, prompts, refs)
+    topo_counts = phase_topology(model, params)
     del params, model
     torch.cuda.empty_cache()
     log(f"phases 3-4: {time.perf_counter() - t0:.1f}s with the weights and references")
@@ -1568,6 +1919,10 @@ def main() -> int:
     t0 = time.perf_counter()
     whisper_counts = phase_whisper(dev)
     log(f"phase 10: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    granite_train_counts, granite_train = phase_train_granite(card)
+    yi_train_counts, yi_train = phase_train_yi(dev, card)
+    log(f"phase 11: {time.perf_counter() - t0:.1f}s")
     # each kernel's launches in the new phases' runs, per request where the
     # run served several
     later = {
@@ -1577,6 +1932,9 @@ def main() -> int:
         "phase 8 llama4-maverick (2 layers), 96 tokens + 8": maverick_counts,
         "phase 9 llava, 2 requests": llava_counts,
         "phase 10 whisper, 3 prompts + 8 tokens each": whisper_counts,
+        "phase 3b yi-9b launch.serve --topology hetero_rack:0": topo_counts,
+        "phase 11 granite-moe launch.train, 6 steps": granite_train_counts,
+        f"phase 11 yi-9b {YI_TRAIN_LAYERS} layers, 2 train steps": yi_train_counts,
     }
 
     t0 = time.perf_counter()
@@ -1598,6 +1956,13 @@ def main() -> int:
         extra["launches_later_phases"] = {run: c[name] for run, c in later.items()}
         if name == "kv_pull":
             extra["bytes_pulled_llava"] = llava_pulled
+        if name == "flash_prefill":
+            tr = row["training"]
+            extra["training"] = {
+                "forward_lse": timing(tr["forward_lse"])
+                | {"ms_without_lse": tr["forward_lse"]["ms_without_lse"],
+                   "lse_max_abs_err": lse_err},
+                "backward": timing(tr["backward"]) | {"max_rel_err": bwd_err}}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_run": run, "launches_per_request": per,
@@ -1612,6 +1977,17 @@ def main() -> int:
                 + (f"; {raw['bound_f32_fma_ms']:.5f} ms at the f32 FMA rate"
                    if "bound_f32_fma_ms" in raw else "")
                 + (f"; us a launch (profiler) {r['launch_us']}" if "launch_us" in r else ""))
+    tr = rows["flash_prefill"]["training"]
+    for what, r in (("forward with lse", tr["forward_lse"]), ("training backward",
+                                                             tr["backward"])):
+        log(f"phase 5: flash_prefill {what} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
+            f"{r['bound'][0]:.5f} ms by {r['bound'][1]}"
+            + (f"; without lse {r['ms_without_lse']:.4f} ms" if "ms_without_lse" in r else ""))
+    log(f"phase 11 summary ({card}): granite-moe step {granite_train['step_s']:.4f} s, "
+        f"{granite_train['tokens_per_s']:.0f} tokens/s, peak {granite_train['peak_gb']:.2f} GB; "
+        f"yi-9b x{YI_TRAIN_LAYERS} layers step {yi_train['step_s']:.4f} s, "
+        f"{yi_train['tokens_per_s']:.0f} tokens/s, peak {yi_train['peak_gb']:.2f} GB")
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,6 +8,9 @@ uses the same dict layout (dense ``w`` as ``[in, out]``, layers stacked
 their 16-bit pattern.  ``DecodeState`` converts both ways through all its
 fields (paged KV, ring KV, meta KV and SSM state), and so does the
 encoder-decoder's ``EncDecState`` (self-KV pages and cross-attention KV).
+The AdamW state (``opt_state_from_jax``) crosses with its structure and
+dtypes (f32 or bf16 moments, the f32 master copy, the int32 step), so a
+train step of either framework can start from the other's state.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 from repro_torch.models.transformer import DecodeState
 from repro_torch.models.whisper import EncDecState
 
-__all__ = ["tensor_from_numpy", "params_from_jax", "state_from_jax", "state_to_numpy"]
+__all__ = ["tensor_from_numpy", "params_from_jax", "opt_state_from_jax", "state_from_jax",
+           "state_to_numpy"]
 
 _KV_FIELDS = ("k_pages", "v_pages", "ring_k", "ring_v", "meta_k", "meta_v", "cross_k",
               "cross_v")
@@ -40,6 +44,15 @@ def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device, dtype=dtype) for k, v in tree.items()}
     return tensor_from_numpy(tree, device=device, dtype=dtype)
+
+
+def opt_state_from_jax(opt_state, *, device="cpu"):
+    """A JAX AdamW state (``{"step", "m", "v"[, "master"]}``) whose leaves
+    are numpy arrays -> the port's ``optim.adamw`` state: the same dicts,
+    every leaf in its own dtype."""
+    out = {k: params_from_jax(v, device=device) for k, v in opt_state.items() if k != "step"}
+    out["step"] = tensor_from_numpy(opt_state["step"], device=device, dtype=torch.int32)
+    return out
 
 
 def state_from_jax(state, *, device="cpu", dtype: torch.dtype | None = None):

@@ -29,10 +29,15 @@ Port of ``src/repro/core/transfer_engine.py``.  What differs: a
 into pages of ``page_nbytes`` (one K or V span of a KV block), and the
 tensor-centric data path lands each tick's coalesced reads with ONE
 ``kv_pull`` launch per (source, destination) region pair — the merged
-reads become page-id pairs.  Reads carrying an int8 ``qscale`` are
-quantized on the device and land through ``kv_pull_dequant``, with the
-reference's arithmetic (f32 divide, round half to even, clip ±127, int8,
-f32 product, one cast to bf16).  The message mode stays a plain byte copy.
+reads become page-id pairs.  A read off those pages (a region registered
+without ``page_nbytes``, two regions of different page sizes, or a span
+that starts or ends inside a page) lands through its own ``kv_pull``
+launch as one page of its own length, so every span the reference's
+byte copy lands, the port lands, byte for byte.  Reads carrying an int8
+``qscale`` are quantized on the device and land through
+``kv_pull_dequant`` the same two ways, with the reference's arithmetic
+(f32 divide, round half to even, clip ±127, int8, f32 product, one cast
+to bf16).  The message mode stays a plain byte copy.
 """
 from __future__ import annotations
 
@@ -287,15 +292,14 @@ class MemoryRegion:
             )
         return self.buffer[lo : lo + rng.nbytes]
 
-    def pages(self, rng: ByteRange) -> range:
-        """Page ids a page-aligned range covers; a misaligned span raises."""
+    def pages(self, rng: ByteRange) -> range | None:
+        """Page ids a page-aligned range covers; None for a span off the
+        region's pages (or a region without pages)."""
         self.view(rng)  # bounds check
         lo = rng.offset - self.base_address
         p = self.page_nbytes
         if p <= 0 or lo % p or rng.nbytes % p:
-            raise ValueError(
-                f"range {rng} of MR {self.worker_id} is not aligned to its "
-                f"{p}-byte pages")
+            return None
         return range(lo // p, (lo + rng.nbytes) // p)
 
     def page_array(self, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
@@ -751,10 +755,11 @@ class TransferEngine:
 
     def _land(self, merged: Sequence[CoalescedRead]) -> None:
         """Execute one tick's coalesced reads: per (src, dst) region pair,
-        every plain read becomes page-id pairs for ONE ``kv_pull`` launch,
-        and every quantized read (carried ``qscale``, or the engine-wide
-        int8 codec) is quantized on the device and lands through ONE
-        ``kv_pull_dequant`` launch."""
+        every plain read on pages becomes page-id pairs for ONE ``kv_pull``
+        launch, and every quantized read on pages (carried ``qscale``, or
+        the engine-wide int8 codec) is quantized on the device and lands
+        through ONE ``kv_pull_dequant`` launch.  A read off the pages lands
+        alone, as one page of its own length (``_pull_span``)."""
         if not self.execute_copies:
             return
         groups: dict[tuple[str, str], tuple[list, list]] = {}
@@ -763,12 +768,13 @@ class TransferEngine:
             dst = self._regions.get(op.dst_worker)
             if src is None or dst is None:
                 raise self._torn(op.src_worker if src is None else op.dst_worker, op)
-            if src.page_nbytes != dst.page_nbytes:
-                raise ValueError(
-                    f"page size of MR {src.worker_id} ({src.page_nbytes}) != "
-                    f"MR {dst.worker_id} ({dst.page_nbytes})")
+            quantized = self.codec != "none" or op.qscale is not None
+            if src.page_nbytes != dst.page_nbytes or src.pages(op.remote) is None \
+                    or dst.pages(op.local) is None:
+                self._pull_span(src, dst, op, quantized)
+                continue
             plain, quant = groups.setdefault((op.src_worker, op.dst_worker), ([], []))
-            (plain if self.codec == "none" and op.qscale is None else quant).append(op)
+            (quant if quantized else plain).append(op)
         for (sw, dw), (plain, quant) in groups.items():
             src, dst = self._regions[sw], self._regions[dw]
             if plain:
@@ -798,6 +804,26 @@ class TransferEngine:
                 torch.tensor(sids, dtype=torch.int32, device=dev),
                 torch.tensor(dids, dtype=torch.int32, device=dev))
 
+    @staticmethod
+    def _scale(span: torch.Tensor, qscale: float | None) -> float:
+        """A read's int8 scale: the carried one, else the span's max / 127
+        (1.0 for an all-zero span), as the reference computes it."""
+        return qscale if qscale is not None else float(span.abs().max()) / 127.0 or 1.0
+
+    def _pull_span(self, src: MemoryRegion, dst: MemoryRegion, op: CoalescedRead,
+                   quantized: bool) -> None:
+        """One read off the pages: both spans viewed as a ``[1, nbytes]``
+        page array, one launch with ids [0] -> [0]."""
+        s, d = src.view(op.remote).view(1, -1), dst.view(op.local).view(1, -1)
+        ids = torch.zeros(1, dtype=torch.int32, device=d.device)
+        if not quantized:
+            kv_pull(s, d, ids, ids)
+            return
+        x = s.view(torch.bfloat16).float()
+        sc = torch.tensor([self._scale(x, op.qscale)], dtype=torch.float32, device=d.device)
+        q = torch.clamp(torch.round(x / sc[:, None]), -127, 127).to(torch.int8)
+        kv_pull_dequant(q, d.view(torch.bfloat16), ids, ids, sc)
+
     def _pull_quantized(self, src: MemoryRegion, dst: MemoryRegion,
                         ops: Sequence[CoalescedRead]) -> None:
         """int8 transport: quantize the bf16 spans with their scales, move
@@ -814,8 +840,7 @@ class TransferEngine:
             if op.qscale is not None:
                 scales.append(op.qscale)
             else:
-                span = s[[j for j, o in enumerate(owner) if o == i]]
-                scales.append(float(span.abs().max()) / 127.0 or 1.0)
+                scales.append(self._scale(s[[j for j, o in enumerate(owner) if o == i]], None))
         sc = torch.tensor([scales[o] for o in owner], dtype=torch.float32, device=dev)
         q = torch.clamp(torch.round(s / sc[:, None]), -127, 127).to(torch.int8)
         kv_pull_dequant(q, dst.page_array(torch.bfloat16),

@@ -50,6 +50,12 @@
 // partly masked tiles mask per element, rows and keys past s and t too.
 // Blocks of the last q tiles, which visit the most k tiles, start first.
 //
+// The log-sum-exp of each row's scaled scores (m + log l, f32, [b, h, s])
+// is an optional output for the training path's backward, which recomputes
+// the softmax from it (models/flash.py); a row with no visible key writes
+// -inf (its l is 0, and its output row is 0).  Writing it costs one store a
+// row, and a null pointer skips it.
+//
 // f32 calls keep the first, scalar kernel (f32 FMA, 32 x 32 tiles): TF32
 // tensor cores keep about three decimal digits, which would break the
 // 2e-4 tolerance of the f32 checks and the f32 consistency checks that run
@@ -74,6 +80,7 @@ __global__ void flash_prefill_f32_kernel(const float* __restrict__ q,  // [b, s,
                                          const float* __restrict__ k,  // [b, t, g, d]
                                          const float* __restrict__ v,
                                          float* __restrict__ out,      // [b, s, h, d]
+                                         float* __restrict__ lse,      // [b, h, s] or null
                                          int s, int t, int h, int g, int d, int causal,
                                          int window, int prefix, float scale) {
   extern __shared__ float smem[];
@@ -198,11 +205,16 @@ __global__ void flash_prefill_f32_kernel(const float* __restrict__ q,  // [b, s,
             acc[i] / fmaxf(l_s[r], 1e-30f);
     }
   }
+  if (lse != nullptr) {  // m_s is in scaled units here
+    for (int r = tid; r < q_rows; r += kThreads)
+      lse[(static_cast<int64_t>(bat) * h + head) * s + q_lo + r] =
+          l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : -INFINITY;
+  }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
-               int h, int g, int d, int causal, int window, int prefix, float scale,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, void* lse, int b,
+               int s, int t, int h, int g, int d, int causal, int window, int prefix,
+               float scale, cudaStream_t stream) {
   if (d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(kBQ) * d + static_cast<size_t>(kBK) * (d + 1) +
@@ -216,8 +228,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b, in
   dim3 grid((s + kBQ - 1) / kBQ, h, b);
   flash_prefill_f32_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s, t, h, g, d, causal, window,
-      prefix, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), s, t,
+      h, g, d, causal, window, prefix, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -284,6 +296,7 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,  // [b, s, h, D]
                           const __nv_bfloat16* __restrict__ k,  // [b, t, g, D]
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ out,      // [b, s, h, D]
+                          float* __restrict__ lse,              // [b, h, s] or null
                           int s, int t, int h, int g, int causal, int window, int prefix,
                           float scale_log2) {
   constexpr int LD = D + kPad;
@@ -487,11 +500,19 @@ flash_prefill_bf16_kernel(const __nv_bfloat16* __restrict__ q,  // [b, s, h, D]
       *reinterpret_cast<__nv_bfloat162*>(out + ((q_row0 + row1) * h + head) * D + col) =
           __floats2bfloat162_rn(o[i][2] * inv1, o[i][3] * inv1);
   }
+  if (lse != nullptr && quad == 0) {  // m is in raw units: scale it, in natural log
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lse_row = lse + (static_cast<int64_t>(bat) * h + head) * s;
+    if (row0 < q_lo + q_rows)
+      lse_row[row0] = l0 > 0.f ? (m0 * scale_log2 + log2f(l0)) * kLn2 : -INFINITY;
+    if (row1 < q_lo + q_rows)
+      lse_row[row1] = l1 > 0.f ? (m1 * scale_log2 + log2f(l1)) * kLn2 : -INFINITY;
+  }
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int s, int t,
-                int h, int g, int causal, int window, int prefix, float scale,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int b,
+                int s, int t, int h, int g, int causal, int window, int prefix, float scale,
                 cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * 4 * kTile * (D + kPad);
   auto kernel = flash_prefill_bf16_kernel<D>;
@@ -503,8 +524,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, i
   dim3 grid((s + kTile - 1) / kTile, h, b);
   kernel<<<grid, 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), s, t, h, g,
-      causal, window, prefix, scale * 1.4426950408889634f);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), s, t, h, g, causal, window, prefix,
+      scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -522,25 +544,30 @@ extern "C" int flash_prefill_design(int* out, int n) {
 }
 
 // dtype: 0 = float32 (scalar kernel, d <= 128), 1 = bfloat16 (tensor-core
-// kernel, d in {32, 64, 128}); q, k, v and out share it.
+// kernel, d in {32, 64, 128}); q, k, v and out share it.  lse: f32
+// [b, h, s], or null when the caller does not want it.
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
-                                    void* out, int b, int s, int t, int h, int g, int d,
+                                    void* out, void* lse, int b, int s, int t, int h, int g,
+                                    int d,
                                     int causal, int window, int prefix, float scale,
                                     int dtype, void* stream) {
   if (b <= 0 || s <= 0) return 0;
   if (g <= 0 || h % g != 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(q, k, v, out, b, s, t, h, g, d, causal, window, prefix, scale, st);
+    return launch_f32(q, k, v, out, lse, b, s, t, h, g, d, causal, window, prefix, scale,
+                      st);
   if (dtype == 1) {
     switch (d) {
       case 32:
-        return launch_bf16<32>(q, k, v, out, b, s, t, h, g, causal, window, prefix, scale, st);
+        return launch_bf16<32>(q, k, v, out, lse, b, s, t, h, g, causal, window, prefix,
+                               scale, st);
       case 64:
-        return launch_bf16<64>(q, k, v, out, b, s, t, h, g, causal, window, prefix, scale, st);
+        return launch_bf16<64>(q, k, v, out, lse, b, s, t, h, g, causal, window, prefix,
+                               scale, st);
       case 128:
-        return launch_bf16<128>(q, k, v, out, b, s, t, h, g, causal, window, prefix, scale,
-                                st);
+        return launch_bf16<128>(q, k, v, out, lse, b, s, t, h, g, causal, window, prefix,
+                                scale, st);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -38,7 +38,8 @@ SIGNATURES = {
                                _F, _I, ctypes.POINTER(_I), _P],
     "paged_attention_design": [ctypes.POINTER(_I), _I],
     "flash_prefill_design": [ctypes.POINTER(_I), _I],
-    "flash_prefill_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_prefill_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                             _P],
     "kv_pull_launch": [_P, _P, _P, _P, _I, _I64, _P],
     "kv_pull_dequant_launch": [_P, _P, _P, _P, _P, _I, _I64, _I, _P],
     "ssd_scan_design": [ctypes.POINTER(_I), _I],

@@ -42,9 +42,12 @@ def k_tiles(q_lo: int, s: int, t: int, tile: int, *, causal: bool, window: int =
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, sliding_window: int = 0,
-                  prefix_len: int = 0):
+                  prefix_len: int = 0, return_lse: bool = False):
     """q [b, s, h, d]; k, v [b, t, g, d] -> [b, s, h, d] in q.dtype.  Any
-    s and t: ragged edges are masked inside the kernel."""
+    s and t: ragged edges are masked inside the kernel.  ``return_lse``
+    returns (out, lse [b, h, s] f32) instead, lse being each row's
+    log-sum-exp of its scaled scores (-inf for a row that sees no key),
+    which the training path's backward recomputes the softmax from."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_prefill: q [b,s,h,d], k/v [b,t,g,d], got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -57,7 +60,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not build.on_cuda("flash_prefill", q, k, v):
         return dense_ref(q, k, v, causal=causal, sliding_window=sliding_window,
-                         prefix_len=prefix_len)
+                         prefix_len=prefix_len, return_lse=return_lse)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_prefill: inputs must be contiguous")
     if q.dtype == torch.bfloat16:
@@ -70,13 +73,15 @@ def flash_prefill(q, k, v, *, causal: bool = True, sliding_window: int = 0,
     lib = build.library()
     build.check_design("flash_prefill", DESIGN, lib)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     err = lib.flash_prefill_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, g, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, b, s, t, h, g, d,
         int(causal), int(sliding_window), int(prefix_len), float(d) ** -0.5,
         _DTYPES[q.dtype], build.stream_ptr(q.device))
     build.check(err, "flash_prefill")
     flash_prefill.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_prefill.launches = 0

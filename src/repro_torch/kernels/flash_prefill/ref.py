@@ -11,10 +11,11 @@ __all__ = ["dense_ref"]
 
 
 def dense_ref(q, k, v, *, causal=True, sliding_window=0, prefix_len=0,
-              q_offset=0, kv_len=None):
+              q_offset=0, kv_len=None, return_lse=False):
     """q [b, s, h, d]; k, v [b, t, g, d] -> [b, s, h, d].  ``q_offset`` is
     the absolute position of q[:, 0] (int or [b]); ``kv_len`` [b] bounds
-    the valid keys per row."""
+    the valid keys per row.  ``return_lse`` adds each row's log-sum-exp of
+    its scaled scores, [b, h, s] f32 (-inf for a fully masked row)."""
     b, s, h, d = q.shape
     t, g = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, g, h // g, d)
@@ -36,5 +37,7 @@ def dense_ref(q, k, v, *, causal=True, sliding_window=0, prefix_len=0,
     scores = scores.masked_fill(~valid[:, None, None], float("-inf"))
     w = torch.softmax(scores, dim=-1)
     w = torch.nan_to_num(w, nan=0.0).to(v.dtype)  # fully masked rows
-    out = torch.einsum("bgqst,btgd->bsgqd", w, v)
-    return out.reshape(b, s, h, d)
+    out = torch.einsum("bgqst,btgd->bsgqd", w, v).reshape(b, s, h, d)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+    return out

@@ -55,6 +55,10 @@ def ssd_scan(x, dt, a, B, C, d_skip, *, chunk: int = 128):
         raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
     if not build.on_cuda("ssd_scan", x, dt, a, B, C, d_skip):
         return ssd_scan_ref(x, dt, a, B, C, d_skip, chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, B, C, d_skip)):
+        # the kernel has no backward: its output would silently cut the graph
+        raise RuntimeError("ssd_scan: the CUDA kernel has no backward; SSM and hybrid "
+                           "training on the card is not supported yet (inputs require grad)")
     for t in (x, dt, a, B, C, d_skip):
         if not t.is_contiguous():
             raise ValueError("ssd_scan: inputs must be contiguous")

@@ -10,8 +10,13 @@ Runs the REAL pipeline: prefill workers fill registered KV slabs, the
 decode worker pulls with one-sided reads through the transfer engine
 (coalesced, landed by the kv_pull kernel), COMPLETE frees prefill
 memory, continuous-batching decode over the paged_attention kernel.
-Weights are random, from seed 0.  ``--topology`` waits for the
-topology slice of the port.
+Weights are random, from seed 0.  ``--topology PRESET[:SEED]|PATH``
+plans the roles over a heterogeneous cluster (``repro_torch.topo``),
+sizes each worker's pool by its machine's VRAM and prices the bound
+links in the router; the workers themselves all run on the one device:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
+        --smoke --device cpu --topology hetero_rack:0
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ from repro_torch.obs import Tracer, all_request_breakdowns, mean_fractions
 from repro_torch.serving.disagg import DisaggService
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> list[list[int]]:
+    """Serve ``--requests`` requests one after another; returns each one's
+    tokens."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-67b")
     ap.add_argument("--smoke", action="store_true")
@@ -63,6 +70,13 @@ def main(argv: list[str] | None = None) -> None:
                     metavar="FRAC",
                     help="reject dispatch when projected decode KV "
                          "occupancy exceeds FRAC of fleet capacity")
+    ap.add_argument("--topology", default=None, metavar="SPEC",
+                    help="serve on a heterogeneous cluster topology "
+                         "(docs/topology.md): either PRESET[:SEED] for a "
+                         "generated cluster (e.g. hetero_rack:3) or a "
+                         "path to a ClusterSpec JSON file; the placement "
+                         "planner assigns roles, per-pair link costs "
+                         "drive routing (overrides --prefill-workers)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -76,15 +90,42 @@ def main(argv: list[str] | None = None) -> None:
         fleet = FleetConfig(autoscale=args.autoscale, preempt=args.preempt,
                             victim_policy=args.victim_policy,
                             admission_budget=args.admission_budget)
-    svc = DisaggService(model, params, n_prefill=args.prefill_workers,
-                        num_blocks=256, tracer=tracer,
-                        quantize_transfer=args.quantize_transfer,
-                        fleet=fleet, device=args.device)
+    if args.topology is not None:
+        import os
+
+        from repro_torch.topo import ClusterSpec, PRESETS, generate_cluster
+        if os.path.exists(args.topology):
+            with open(args.topology) as f:
+                spec = ClusterSpec.from_json(f.read())
+        else:
+            preset, _, seed = args.topology.partition(":")
+            if preset not in PRESETS:
+                raise SystemExit(
+                    f"--topology {args.topology!r}: no such file, and not a "
+                    f"PRESET[:SEED] (presets: {sorted(PRESETS)})")
+            spec = generate_cluster(preset, int(seed) if seed else 0)
+        svc = DisaggService.from_cluster_spec(
+            model, params, spec, num_blocks=256, tracer=tracer,
+            quantize_transfer=args.quantize_transfer, fleet=fleet,
+            device=args.device)
+        b = svc.topology
+        print(f"[serve] topology {spec.name}: "
+              f"prefill={[f'{w}={b.machine(w).machine_id}' for w in sorted(svc.prefills)]} "
+              f"decode={[f'{w}={b.machine(w).machine_id}' for w in sorted(svc.decodes)]}")
+        workers = {**svc.prefills, **svc.decodes}
+        print("[serve] pools (blocks, by machine VRAM): "
+              + " ".join(f"{w}={workers[w].cache.num_blocks}" for w in sorted(workers)))
+    else:
+        svc = DisaggService(model, params, n_prefill=args.prefill_workers,
+                            num_blocks=256, tracer=tracer,
+                            quantize_transfer=args.quantize_transfer,
+                            fleet=fleet, device=args.device)
 
     rng = np.random.default_rng(0)
     prefix_len = int(args.prompt_len * args.shared_prefix_frac)
     shared = rng.integers(0, cfg.vocab_size, prefix_len).astype(np.int32)
     t0 = time.perf_counter()
+    outs = []
     for i in range(args.requests):
         suffix = rng.integers(0, cfg.vocab_size,
                               args.prompt_len - prefix_len).astype(np.int32)
@@ -93,6 +134,7 @@ def main(argv: list[str] | None = None) -> None:
                          prefix_id="shared" if prefix_len else None,
                          prefix_len=prefix_len)
         out = svc.generate(req, max_new=args.max_new)
+        outs.append(out)
         stats = svc.engine.stats
         hm = req.metrics
         print(f"[serve] {req.request_id}: prefill@{req.prefill_worker} "
@@ -118,6 +160,7 @@ def main(argv: list[str] | None = None) -> None:
         tracer.export_chrome(args.trace_out)
         print(f"[serve] wrote Chrome trace ({len(tracer.spans)} spans) "
               f"to {args.trace_out}")
+    return outs
 
 
 if __name__ == "__main__":

@@ -2,9 +2,14 @@
 port of ``src/repro/models/transformer.py``.
 
 Covered: ``DecodeState`` (paged KV, sliding-window ring KV, meta-token KV,
-SSM state), ``init_params``, ``prefill`` (with the meta-token prefix and
-the VLM's early-fused ``vision_embeds``), ``decode_step`` and
-``decode_step_layerwise`` (paged archs only, as in the reference).  The
+SSM state), ``init_params``, ``train_loss`` (next-token cross-entropy on
+the text positions, plus 0.01 × the MoE load-balance loss; ``remat``
+checkpoints each layer group with ``torch.utils.checkpoint``, after the
+reference's ``jax.checkpoint(..., nothing_saveable)`` over its scan
+body), ``prefill`` (with the meta-token prefix and the VLM's early-fused
+``vision_embeds``), ``decode_step``, ``decode_step_layerwise`` (paged
+archs only, as in the reference) and ``decode_state_shape`` (meta
+tensors).  The
 params keep the reference's layout: ``layers`` stacked over
 ``n_steps = L / group``, where a group is ``moe_every`` layers for
 interleaved MoE (MoE the last of each group, the others dense with
@@ -28,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVPages, paged_decode_with_write, rope
@@ -36,9 +42,9 @@ from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
     PARAM_DTYPE, dense, dense_init, gelu_mlp, normal_, rmsnorm, swiglu)
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.ssm import ssm_prefill, ssm_step
+from repro_torch.models.ssm import ssm_prefill, ssm_state_shapes, ssm_step
 
-__all__ = ["DecoderLM", "DecodeState", "paged_kv", "stack_states"]
+__all__ = ["DecoderLM", "DecodeState", "paged_kv", "sharded_nll", "stack_states"]
 
 
 @dataclasses.dataclass
@@ -90,6 +96,16 @@ def paged_kv(k: torch.Tensor, v: torch.Tensor, block_size: int, margin: int):
     tables = torch.arange(per_seq, dtype=torch.int32, device=k.device)
     return (k_pages.reshape(L, b, per_seq, block_size, g, hd),
             v_pages.reshape(L, b, per_seq, block_size, g, hd), tables[None, :].repeat(b, 1))
+
+
+def sharded_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Per-position cross-entropy over the real vocabulary (the padded
+    logits masked to -inf): logsumexp − the label's logit, the value of the
+    reference's ``_sharded_nll`` (one device: no vocab axis to keep
+    sharded, so the label's logit is a gather)."""
+    valid = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
+    lse = torch.logsumexp(logits.masked_fill(~valid, float("-inf")), dim=-1)
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
 
 
 def _layer(tree, i: int):
@@ -219,17 +235,17 @@ class DecoderLM:
         }
 
     def _apply_ffn(self, p, x, ffn_kind: str):
-        """The residual branch of the sub-layer's FFN on x [..., d]: a dense
-        MLP, or MoE over x as one row of tokens per leading index (the
-        decode step's [b, d] as b rows of one token, as the reference's
-        ``[:, None, :]``)."""
+        """The residual branch of the sub-layer's FFN on x [..., d] and its
+        load-balance loss (None but for MoE): a dense MLP, or MoE over x as
+        one row of tokens per leading index (the decode step's [b, d] as b
+        rows of one token, as the reference's ``[:, None, :]``)."""
         hn = rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
         if ffn_kind == "moe":
-            y, _ = moe_apply(p["moe"], hn if hn.dim() == 3 else hn[:, None, :], self.cfg)
-            return y if x.dim() == 3 else y[:, 0]
+            y, aux = moe_apply(p["moe"], hn if hn.dim() == 3 else hn[:, None, :], self.cfg)
+            return (y if x.dim() == 3 else y[:, 0]), aux
         if self.cfg.mlp_type == "swiglu":
-            return swiglu(p["mlp"], hn)
-        return gelu_mlp(p["mlp"], hn)
+            return swiglu(p["mlp"], hn), None
+        return gelu_mlp(p["mlp"], hn), None
 
     def _mix(self, p, outs: dict):
         """The token mixers' sum into the residual: the one branch, or the
@@ -249,7 +265,9 @@ class DecoderLM:
         return torch.as_tensor(tokens, device=self.device).long()
 
     # ------------------------------------------------- full-seq forward
-    def _sub_full(self, p, x, positions, ffn_kind: str):
+    def _sub_full(self, p, x, positions, ffn_kind: str, return_kv: bool = True):
+        """One layer over the whole sequence -> (x, its KV / SSM caches when
+        ``return_kv``, its MoE load-balance loss or None)."""
         cfg = self.cfg
         outs, caches = {}, {}
         if cfg.has_attention:
@@ -263,14 +281,19 @@ class DecoderLM:
             a = flash_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window,
                                 prefix_len=cfg.num_meta_tokens)
             outs["attn"] = dense(p["attn"]["o"], a.reshape(b, s, -1))
-            caches["k"], caches["v"] = k, v
+            if return_kv:
+                caches["k"], caches["v"] = k, v
         if cfg.has_ssm:
             h = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
-            outs["ssm"], (caches["ssd"], caches["conv"]) = ssm_prefill(p["ssm"], h, cfg)
+            outs["ssm"], (ssd, conv) = ssm_prefill(p["ssm"], h, cfg)
+            if return_kv:
+                caches["ssd"], caches["conv"] = ssd, conv
         x = x + self._mix(p, outs)
+        aux = None
         if ffn_kind != "none":
-            x = x + self._apply_ffn(p, x, ffn_kind)
-        return x, caches
+            y, aux = self._apply_ffn(p, x, ffn_kind)
+            x = x + y
+        return x, caches, aux
 
     def _embed_inputs(self, params, tokens, vision_embeds=None):
         """Token embeddings, with the VLM's image embeddings early-fused in
@@ -290,6 +313,46 @@ class DecoderLM:
             offset += cfg.num_meta_tokens
         return x, offset
 
+    # ------------------------------------------------------------ train
+    def _group_train(self, p, x, positions):
+        """One layer group of the training forward -> (x, the group's summed
+        MoE load-balance loss, f32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(self.group):
+            x, _, a = self._sub_full(p if self.group == 1 else p[f"sub{i}"], x, positions,
+                                     self._sub_kind(i), return_kv=False)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def train_loss(self, params, batch, *, remat: bool = True):
+        """batch: tokens [b, s] (+ optional vision_embeds) -> (loss, {"nll",
+        "aux"}): the mean next-token cross-entropy over the text positions
+        (after a VLM's image tokens and any meta prefix), plus 0.01 × the
+        mean MoE load-balance loss for MoE configs.  ``remat`` recomputes
+        each layer group's forward in the backward instead of keeping its
+        activations (so the flash_prefill kernel runs twice a layer)."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        x, offset = self._embed_inputs(params, tokens, batch.get("vision_embeds"))
+        b, s_total = x.shape[:2]
+        positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for step in range(self.n_steps):
+            p = _layer(params["layers"], step)
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    self._group_train, p, x, positions, use_reentrant=False)
+            else:
+                x, a = self._group_train(p, x, positions)
+            aux = aux + a
+        aux = aux / cfg.num_layers
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, offset:]
+        logits = self._logits(params, x[:, :-1]).float()
+        nll = sharded_nll(logits, tokens[:, 1:], cfg.vocab_size).mean()
+        loss = nll + 0.01 * aux if cfg.family == "moe" else nll
+        return loss, {"nll": nll, "aux": aux}
+
     # ---------------------------------------------------------- prefill
     def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True):
         """Run the prompt (image tokens of a VLM batch's ``vision_embeds``
@@ -305,7 +368,7 @@ class DecoderLM:
         positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
         per_layer = []
         for _, p, kind in self._sublayers(params):
-            x, caches = self._sub_full(p, x, positions, kind)
+            x, caches, _ = self._sub_full(p, x, positions, kind)
             per_layer.append(caches)
         caches = {key: torch.stack([c[key] for c in per_layer]) for key in per_layer[0]}
         del per_layer
@@ -350,6 +413,39 @@ class DecoderLM:
             state.conv_state = caches["conv"]  # [L, b, k-1, c]
         return state
 
+    def decode_state_shape(self, batch: int, context_len: int, *, margin: int = 16,
+                           dtype: torch.dtype = torch.bfloat16) -> DecodeState:
+        """A decode state holding ``context_len`` tokens as meta tensors
+        (shapes and dtypes, no storage) — the reference's ShapeDtypeStruct
+        tree."""
+        cfg = self.cfg
+        bs = self.BLOCK_SIZE
+        L, g, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+
+        def meta(shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        state = DecodeState(context_lens=meta((batch,), torch.int32))
+        if cfg.has_attention:
+            if cfg.sliding_window:
+                cap = cfg.sliding_window + bs
+                state.ring_k = meta((L, batch, cap, g, hd))
+                state.ring_v = meta((L, batch, cap, g, hd))
+                state.ring_pos = meta((batch, cap), torch.int32)
+                if cfg.num_meta_tokens:
+                    state.meta_k = meta((L, batch, cfg.num_meta_tokens, g, hd))
+                    state.meta_v = meta((L, batch, cfg.num_meta_tokens, g, hd))
+            else:
+                per_seq = -(-context_len // bs) + margin
+                state.k_pages = meta((L, batch, per_seq, bs, g, hd))
+                state.v_pages = meta((L, batch, per_seq, bs, g, hd))
+                state.block_tables = meta((batch, per_seq), torch.int32)
+        if cfg.has_ssm:
+            ssd_shape, conv_shape = ssm_state_shapes(cfg, batch)
+            state.ssd_state = meta((L,) + ssd_shape, torch.float32)
+            state.conv_state = meta((L,) + conv_shape)
+        return state
+
     # ------------------------------------------------------ decode step
     def _attn_qkv(self, p, h, pos):
         cfg = self.cfg
@@ -385,7 +481,7 @@ class DecoderLM:
                 p["ssm"], hn, cfg, (state.ssd_state[layer], state.conv_state[layer]))
         h = h + self._mix(p, outs)
         if ffn_kind != "none":
-            h = h + self._apply_ffn(p, h, ffn_kind)
+            h = h + self._apply_ffn(p, h, ffn_kind)[0]
         return h, pages, ssm_state
 
     def _ring_attention(self, q, k_new, v_new, state: DecodeState, layer: int):

@@ -17,6 +17,12 @@ self-attention causal — except the decode step's self-attention, which
 is paged_attention over the pages (the new token written in place, as
 in ``DecoderLM``).
 
+Training: ``train_loss`` is the decoder's next-token cross-entropy over
+the encoded frames; ``remat`` checkpoints each decoder layer (the
+reference's ``jax.checkpoint`` covers the decoder's scan body, not the
+encoder's).  ``decode_state_shape`` gives the decode state as meta
+tensors.
+
 The reference casts the frames to bf16 whatever the weights' dtype, and
 lets a matmul of bf16 activations with f32 weights promote to f32; so
 does this port's ``layers.dense``, so that f32 weights give the
@@ -27,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVPages, paged_decode_with_write
@@ -34,7 +41,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
     PARAM_DTYPE, dense, dense_init, gelu_mlp, layernorm, normal_)
-from repro_torch.models.transformer import _layer, paged_kv
+from repro_torch.models.transformer import _layer, paged_kv, sharded_nll
 
 __all__ = ["EncDecLM", "EncDecState"]
 
@@ -137,31 +144,79 @@ class EncDecLM:
             x = x + gelu_mlp(p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps))
         return layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
-    def _decoder(self, params, tokens, enc_out):
+    def _decoder_layer(self, p, x, enc_out):
+        """One decoder layer over the prompt -> (x, (k, v, cross k, cross v))."""
+        cfg = self.cfg
+        b, s = x.shape[:2]
+        hn = layernorm(p["self_norm"], x, cfg.norm_eps)
+        q, k, v = self._proj_qkv(p["self_attn"], hn, hn)
+        a = flash_attention(q, k, v, causal=True)
+        x = x + dense(p["self_attn"]["o"], a.reshape(b, s, -1))
+        hn = layernorm(p["cross_norm"], x, cfg.norm_eps)
+        cq, ck, cv = self._proj_qkv(p["cross_attn"], hn, enc_out)
+        ca = flash_attention(cq, ck, cv, causal=False)
+        x = x + dense(p["cross_attn"]["o"], ca.reshape(b, s, -1))
+        x = x + gelu_mlp(p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps))
+        return x, (k, v, ck, cv)
+
+    def _decoder(self, params, tokens, enc_out, *, return_kv: bool = True,
+                 remat: bool = False):
         """The decoder's prompt pass -> (normed hidden states, per-layer
-        self-KV and cross-KV stacked [L, b, ...])."""
+        self-KV and cross-KV stacked [L, b, ...], or {} without
+        ``return_kv``).  ``remat`` checkpoints each layer."""
         cfg = self.cfg
         b, s = tokens.shape
         x = params["embed"]["table"][tokens] + params["dec_pos"][:s][None]
         caches = {"k": [], "v": [], "ck": [], "cv": []}
         for layer in range(cfg.num_layers):
             p = _layer(params["dec_layers"], layer)
-            hn = layernorm(p["self_norm"], x, cfg.norm_eps)
-            q, k, v = self._proj_qkv(p["self_attn"], hn, hn)
-            a = flash_attention(q, k, v, causal=True)
-            x = x + dense(p["self_attn"]["o"], a.reshape(b, s, -1))
-            hn = layernorm(p["cross_norm"], x, cfg.norm_eps)
-            cq, ck, cv = self._proj_qkv(p["cross_attn"], hn, enc_out)
-            ca = flash_attention(cq, ck, cv, causal=False)
-            x = x + dense(p["cross_attn"]["o"], ca.reshape(b, s, -1))
-            x = x + gelu_mlp(p["mlp"], layernorm(p["mlp_norm"], x, cfg.norm_eps))
-            for key, val in zip(caches, (k, v, ck, cv)):
-                caches[key].append(val)
+            if remat:
+                x, kv = torch.utils.checkpoint.checkpoint(
+                    self._decoder_layer, p, x, enc_out, use_reentrant=False)
+            else:
+                x, kv = self._decoder_layer(p, x, enc_out)
+            if return_kv:
+                for key, val in zip(caches, kv):
+                    caches[key].append(val)
         x = layernorm(params["dec_final_norm"], x, cfg.norm_eps)
+        if not return_kv:
+            return x, {}
         return x, {key: torch.stack(vals) for key, vals in caches.items()}
 
     def _logits(self, params, x):
         return x @ params["embed"]["table"].T.to(x.dtype)
+
+    # ------------------------------------------------------------- train
+    def train_loss(self, params, batch, *, remat: bool = True):
+        """batch: frames [b, enc_seq, d], tokens [b, s] -> (loss, {"nll"}):
+        the decoder's mean next-token cross-entropy."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["frames"])
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x, _ = self._decoder(params, tokens, enc_out, return_kv=False, remat=remat)
+        logits = self._logits(params, x[:, :-1]).float()
+        nll = sharded_nll(logits, tokens[:, 1:], cfg.vocab_size).mean()
+        return nll, {"nll": nll}
+
+    def decode_state_shape(self, batch: int, context_len: int, *, margin: int = 16,
+                           dtype: torch.dtype = torch.bfloat16) -> EncDecState:
+        """A decode state holding ``context_len`` decoder tokens as meta
+        tensors (shapes and dtypes, no storage)."""
+        cfg = self.cfg
+        L, g, hd, bs = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, self.BLOCK_SIZE
+        per_seq = -(-context_len // bs) + margin
+
+        def meta(shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device="meta")
+
+        return EncDecState(
+            context_lens=meta((batch,), torch.int32),
+            k_pages=meta((L, batch, per_seq, bs, g, hd)),
+            v_pages=meta((L, batch, per_seq, bs, g, hd)),
+            block_tables=meta((batch, per_seq), torch.int32),
+            cross_k=meta((L, batch, cfg.encoder_seq, g, hd)),
+            cross_v=meta((L, batch, cfg.encoder_seq, g, hd)),
+        )
 
     # ----------------------------------------------------------- prefill
     def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True):

@@ -39,8 +39,9 @@ Fault tolerance (both roles):
 Port of ``src/repro/serving/disagg.py``: the service builds the port's
 workers and transfer engine on one ``device`` (the card unless the
 caller passes ``device="cpu"``; a CUDA request without a GPU raises).
-``from_cluster_spec`` and topology binding wait for the topology slice
-(ROADMAP.md) and raise ``NotImplementedError``.
+``from_cluster_spec`` binds the port's copy of ``repro.topo``: the
+workers are logical (all on the one device), but each pool is sized by
+its bound machine's VRAM and the router prices the bound links.
 """
 from __future__ import annotations
 
@@ -216,11 +217,28 @@ class DisaggService:
 
     # ---------------------------------------------------- topology entry
     @classmethod
-    def from_cluster_spec(cls, model, params, spec, **kwargs):
-        """Topology-bound construction (``repro.topo``) is not ported yet."""
-        raise NotImplementedError(
-            "DisaggService.from_cluster_spec waits for the topology slice of the "
-            "port (ROADMAP.md)")
+    def from_cluster_spec(cls, model, params, spec, *, placement=None,
+                          planner=None, seed: int = 0, num_blocks: int = 256,
+                          policy: str = "network_aware", **kwargs):
+        """Build a service from a ``topo.ClusterSpec``: plan prefill/
+        decode roles over the topology (or take an explicit
+        ``placement``), size each worker's KV pool by its machine's VRAM
+        (``num_blocks`` = the largest machine's pool), and feed the
+        router the per-pair ``LinkModel``s so ``network_aware`` /
+        ``prefix_affinity`` routing prices real bandwidth + latency."""
+        from repro_torch.topo import PlacementPlanner, TopologyBinding
+        planner = planner if planner is not None else PlacementPlanner()
+        if placement is None:
+            placement = planner.plan(spec, seed=seed)
+        binding = TopologyBinding(spec, placement, planner=planner)
+        svc = cls(model, params, n_prefill=0, n_decode=0, policy=policy,
+                  **kwargs)
+        svc.topology = binding
+        for _ in placement.decode:
+            svc.add_decode_worker(num_blocks=num_blocks)
+        for _ in placement.prefill:
+            svc.add_prefill_worker(num_blocks=num_blocks)
+        return svc
 
     # -------------------------------------------------- address space
     def _slab_bytes(self, num_blocks: int) -> int:
@@ -240,11 +258,19 @@ class DisaggService:
 
     # ------------------------------------------------------- membership
     def _bind_topology(self, role: str, wid: str, num_blocks: int) -> int:
-        """Pool sizing for a worker: ``num_blocks`` as given.  Sizing by a
-        bound machine's VRAM waits for the topology slice."""
-        if self.topology is not None:
-            raise NotImplementedError("topology binding is not ported yet (ROADMAP.md)")
-        return num_blocks
+        """Topology-bound pool sizing: ``num_blocks`` is the reference
+        (largest-VRAM) machine's pool; the bound machine gets a
+        VRAM-proportional share.  Hot-adds claim the best spare machine
+        (raising ``topo.NoSpareMachine`` on an exhausted cluster) and
+        refresh the router's per-pair link map."""
+        topo = self.topology
+        if topo is None:
+            return num_blocks
+        m = topo.machine(wid)
+        if m is None:  # hot-add beyond the placement: claim a spare
+            m = topo.add_worker(role, wid)
+        return max(1, round(num_blocks * m.profile.vram_bytes
+                            / topo.spec.max_vram))
 
     def add_prefill_worker(self, *, num_blocks: int = 256) -> str:
         wid = f"p{next(self._wid_seq['p'])}"  # monotonic: ids never reused

@@ -498,3 +498,125 @@ def test_state_pull_lands_through_kv_pull(gen):
     assert stats.txns_submitted == 4 and kv_pull.launches > before
     for layer in range(4):
         assert torch.equal(dec.read_slot(layer, 2), pre.read_slot(layer, 1))
+
+
+# ------------------------------------------- the training path (lse, backward)
+# (b, s, t, h, g, d, kw): Yi-9B causal at a serving prompt and at its train
+# length, whisper's encoder (non-causal over 1500 frames), hymba-1.5b's
+# window and meta prefix
+TRAIN_SHAPES = [
+    (1, 257, 257, 32, 4, 128, dict(causal=True)),
+    (1, 2048, 2048, 32, 4, 128, dict(causal=True)),
+    (1, 1500, 1500, 20, 20, 64, dict(causal=False)),
+    (1, 1328, 1328, 25, 5, 64, dict(causal=True, sliding_window=1024, prefix_len=128)),
+]
+LSE_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,g,d,kw", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefill_lse_matches_the_plain_fwd_scan(gen, b, s, t, h, g, d, kw, dtype):
+    from repro_torch.models.flash import flash_forward_plain
+
+    q, k, v = randn(gen, b, s, h, d, dtype=dtype), randn(gen, b, t, g, d, dtype=dtype), \
+        randn(gen, b, t, g, d, dtype=dtype)
+    out, lse = flash_prefill(q, k, v, return_lse=True, **kw)
+    ref_out, ref_lse = flash_forward_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_TOL[dtype], rtol=LSE_TOL[dtype])
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    # the out path is the one without lse, bit for bit
+    assert torch.equal(out, flash_prefill(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,g,d,kw", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_autograd_through_the_plain_version(gen, b, s, t, h, g, d,
+                                                                    kw, dtype):
+    """dq, dk, dv of the autograd Function (the kernel forward, the torch
+    backward) against autograd through dense_ref in f32 on the same
+    (rounded) inputs; ||err|| / ||ref|| under 2e-4 (f32) and 1e-2 (bf16)."""
+    from repro_torch.models.flash import flash_attention
+
+    q, k, v = randn(gen, b, s, h, d, dtype=dtype), randn(gen, b, t, g, d, dtype=dtype), \
+        randn(gen, b, t, g, d, dtype=dtype)
+    dout = randn(gen, b, s, h, d, dtype=dtype)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = flash_ops.flash_prefill.launches
+    flash_attention(*xs, **kw).backward(dout)
+    assert flash_ops.flash_prefill.launches == before + 1  # the forward is the kernel
+    refs = [x.float().requires_grad_(True) for x in (q, k, v)]
+    dense_ref(*refs, **kw).backward(dout.float())
+    torch.cuda.synchronize()
+    limit = 2e-4 if dtype == torch.float32 else REL_NORM_BF16
+    for name, x, r in zip("qkv", xs, refs):
+        assert x.grad.dtype == dtype and torch.isfinite(x.grad).all()
+        assert rel_norm(x.grad, r.grad) < limit, f"d{name}"
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_autograd_on_cuda(gen):
+    b, s, nh, hd, ns = 1, 64, 4, 16, 8
+    x = randn(gen, b, s, nh, hd).requires_grad_(True)
+    dt = torch.rand(b, s, nh, generator=gen, device="cuda") * 0.1
+    a = -torch.rand(nh, generator=gen, device="cuda")
+    B, C = randn(gen, b, s, ns), randn(gen, b, s, ns)
+    d_skip = torch.ones(nh, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, dt, a, B, C, d_skip)
+    with torch.no_grad():  # inference through the kernel still runs
+        y, _ = ssd_scan(x, dt, a, B, C, d_skip)
+    assert torch.isfinite(y).all()
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_cuda_tensors(gen, tmp_path):
+    from repro_torch.ckpt.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.tree import leaves
+
+    tree = ({"w": randn(gen, 64, 32, dtype=torch.bfloat16), "b": randn(gen, 32)},
+            {"step": torch.tensor(4, dtype=torch.int32, device="cuda")}, {"seed": 0, "step": 4})
+    save_checkpoint(tmp_path, 4, tree)
+    like = ({k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in tree[0].items()},
+            {"step": torch.empty((), dtype=torch.int32, device="meta")}, {"seed": 0, "step": 0})
+    got = restore_checkpoint(tmp_path, 4, like, device="cuda")
+    for a, r in zip(leaves(got), leaves(tree)):
+        r = torch.as_tensor(r)
+        if r.is_cuda:
+            assert a.is_cuda and a.dtype == r.dtype
+        assert torch.equal(a.cpu(), r.cpu())
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """Two make_train_step steps of the yi-9b smoke config in f32: on the
+    card (the kernel forward) and on the CPU (the plain forward), the same
+    losses within 1e-5 relative and gradient norms within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config("yi-9b")
+    ocfg = AdamWConfig(lr_peak=3e-3, warmup_steps=1, total_steps=4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 3, 64), generator=torch.Generator()
+                           .manual_seed(0))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        params = tree_map(lambda p: p.float(), model.init_params(0, device="cpu"))
+        params = tree_map(lambda p: p.to(dev), params)
+        state = adamw_init(params, ocfg)
+        step = make_train_step(model, ocfg, remat=True)
+        runs[dev] = []
+        for i in range(2):
+            params, state, m = step(params, state, {"tokens": tokens[i].to(dev)})
+            runs[dev].append((float(m["loss"]), float(m["grad_norm"])))
+    for (lc, gc), (lg, gg) in zip(runs["cpu"], runs["cuda"]):
+        assert lg == pytest.approx(lc, rel=1e-5)
+        assert gg == pytest.approx(gc, rel=1e-4)

@@ -54,7 +54,8 @@ COPIES = (sorted((PORT / "configs").glob("*.py")) + [PORT / "models" / "config.p
              ("descriptors", "coalesce", "connection", "cluster", "pull_push")]
           + [PORT / "serving" / f"{n}.py" for n in ("blocks", "request", "handle", "loop")]
           + sorted((PORT / "obs").glob("*.py")) + sorted((PORT / "sched").glob("*.py"))
-          + sorted((PORT / "fleet").glob("*.py")))
+          + sorted((PORT / "fleet").glob("*.py")) + sorted((PORT / "topo").glob("*.py"))
+          + [PORT / "data" / "pipeline.py"])
 
 
 @pytest.mark.parametrize("path", COPIES, ids=lambda p: str(p.relative_to(PORT)))
@@ -105,6 +106,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         DisaggService(model, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "deepseek-67b", "--smoke", "--requests", "1"])
+
+
+def test_train_launcher_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from repro_torch.launch import train
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "yi-9b", "--smoke", "--steps", "1"])
 
 
 def test_init_params_is_seeded_and_shaped():

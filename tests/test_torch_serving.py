@@ -113,11 +113,52 @@ def test_int8_codec_engine_lands_the_numpy_engines_bytes():
 
 
 def test_misaligned_span_raises():
-    _, pe, _ = _engines(3)
-    pe.submit([pt_desc.ReadTxn("r0", "p0", "d0", pt_desc.ByteRange(PAGE // 2, PAGE),
-                               pt_desc.ByteRange(DST, PAGE), layer=0)])
-    with pytest.raises(ValueError, match="not aligned"):
-        pe.drain()
+    """A span that starts inside a page is no error: it lands the bytes the
+    numpy engine's byte copy lands (the name is kept from when the port
+    refused such reads)."""
+    ne, pe, _ = _engines(3)
+    for mod, eng in ((np_desc, ne), (pt_desc, pe)):
+        eng.submit([mod.ReadTxn("r0", "p0", "d0", mod.ByteRange(PAGE // 2, PAGE),
+                                mod.ByteRange(DST, PAGE), layer=0),
+                    mod.CompleteTxn("r0", "p0", "d0")])
+        eng.drain()
+    np.testing.assert_array_equal(pe._regions["d0"].buffer.numpy(), ne._regions["d0"].buffer)
+    assert pe._regions["d0"].buffer[:PAGE].any()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("case", ["unpaged 4096 B", "2048 B on 4096-byte pages",
+                                  "half-page offset"])
+def test_reads_off_pages_land_through_kv_pull(monkeypatch, case, quantized):
+    """Every span the numpy engine's byte copy lands, the port's lands too,
+    byte for byte, each read as one page of its own length through the
+    kv_pull (or kv_pull_dequant) wrapper."""
+    from repro_torch.kernels.kv_pull import ops
+
+    page = 0 if case == "unpaged 4096 B" else 4096
+    src_off, n = {"unpaged 4096 B": (0, 4096), "2048 B on 4096-byte pages": (4096, 2048),
+                  "half-page offset": (2048, 4096)}[case]
+    vals = np.random.default_rng(9).standard_normal(8192).astype(np.float32)
+    src_pt = torch.from_numpy(vals).to(torch.bfloat16).view(torch.uint8).clone()
+    ne, pe = NpEngine(), TransferEngine()
+    ne.register_memory(NpRegion("p0", 0, src_pt.numpy().copy()))
+    ne.register_memory(NpRegion("d0", DST, np.zeros(16384, np.uint8)))
+    pe.register_memory(MemoryRegion("p0", 0, src_pt, page_nbytes=page))
+    pe.register_memory(MemoryRegion("d0", DST, torch.zeros(16384, dtype=torch.uint8),
+                                    page_nbytes=page))
+    calls = []
+    name = "kv_pull_dequant_ref" if quantized else "kv_pull_ref"
+    ref = getattr(ops, name)
+    monkeypatch.setattr(ops, name, lambda *a: calls.append(a[0].shape) or ref(*a))
+    for mod, eng in ((np_desc, ne), (pt_desc, pe)):
+        eng.codec = "int8_transport" if quantized else "none"
+        eng.submit([mod.ReadTxn("r0", "p0", "d0", mod.ByteRange(src_off, n),
+                                mod.ByteRange(DST + 4096, n), layer=0),
+                    mod.CompleteTxn("r0", "p0", "d0")])
+        eng.drain()
+    np.testing.assert_array_equal(pe._regions["d0"].buffer.numpy(), ne._regions["d0"].buffer)
+    assert pe._regions["d0"].buffer.any()
+    assert calls == [(1, n // 2 if quantized else n)]  # one page of the read's length
 
 
 # -------------------------------------------------------------- service
