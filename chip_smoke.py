@@ -26,7 +26,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    out path unchanged, bit for bit), and the autograd Function's dq, dk,
    dv (the kernel forward, the plain-torch backward) against autograd
    through the plain version, at Yi-9B s = 257 and 2048, whisper's
-   encoder and hymba's window + prefix, f32 and bf16.  Phase 1 also fails unless the SASS of
+   encoder and hymba's window + prefix, f32 and bf16.  ssd_scan's autograd
+   Function (the kernel forward, the plain-torch backward) against autograd
+   through the plain version: y and the state to 1e-3, the six gradients to
+   1e-4 in ||err|| / ||ref||, at mamba2-780m's training shape (2 x 4096), a
+   ragged mamba2 length, hymba-1.5b's widths and the decay extremes.
+   Phase 1 also fails unless the SASS of
    the ssd_scan kernels that multiply holds tensor-core (HMMA)
    instructions.
 3. Serve through the normal entry point: ``repro_torch.launch.serve`` at
@@ -94,13 +99,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    through the plain versions (loss 1e-5, grad norm 1e-4 relative).  Step
    times, tokens a second and peak memory beside the card's name and
    power limit.
+12. SSM and hybrid training: mamba2-780m and hymba-1.5b at their full
+   configs through ``launch.train``, batch 2 x 4096, 4 steps with a
+   checkpoint at step 3: losses finite, ssd_scan (and hymba's
+   flash_prefill) exactly layers x steps x 2 under remat; a ``--resume``
+   from the checkpoint repeats the uninterrupted run's loss bit for bit
+   (hymba's at its full width cut to 16 layers: the full state's 22 GB
+   checkpoint does not fit beside phase 11's in what a run may write);
+   each model's 2-layer f32 cut, a kernel step against a plain step (loss
+   1e-5, grad norm 1e-4 relative); mamba2's step timed with each SSD
+   backward in this call (the one derived by hand against its first
+   design, the plain version again under autograd).  Step times, tokens a
+   second and peak memory beside the card's name and power limit.
+13. The port's examples (``examples/torch_*.py``), each ``main`` on the
+   card with its defaults, each a path of its own: their self-checks hold
+   (served tokens equal monolithic greedy generation, resumed losses
+   bit-equal) and each kernel they use launched.
 5. Times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call computing the same function (none computes the
    SSD scan), and the bound; for ssd_scan also each of its launches'
    device time (torch.profiler); and rows at whisper's decode, encoder and
    decode cross-attention and llava's 2976-token prefill; flash_prefill's
    forward with lse at Yi-9B s = 2048 (beside the call without it) and the
-   training backward (plain torch after ``_bwd_scan``) at the same shape.
+   training backward (plain torch after ``_bwd_scan``) at the same shape;
+   ssd_scan's forward and backward (plain torch, no Pallas counterpart) at
+   mamba2-780m's training shape, 2 x 4096.
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -148,12 +171,13 @@ LONG_CTX = 4096
 TRAIN_SEQ = 2048                   # the Yi-9B training cut's length
 # (b, s, t, h, g, d, kwargs) of the training path's attention checks: Yi-9B
 # causal at a serving prompt and at TRAIN_SEQ, whisper's encoder, hymba's
-# window and meta prefix
+# window and meta prefix, torch_train_lm's heads of 8
 TRAIN_SHAPES = [
     (1, 257, 257, 32, 4, 128, dict(causal=True)),
     (1, TRAIN_SEQ, TRAIN_SEQ, 32, 4, 128, dict(causal=True)),
     (1, 1500, 1500, 20, 20, 64, dict(causal=False)),
     (1, 1328, 1328, 25, 5, 64, dict(causal=True, sliding_window=1024, prefix_len=128)),
+    (8, 128, 128, 8, 2, 8, dict(causal=True)),   # examples/torch_train_lm.py
 ]
 BWD_REL = {"float32": 2e-4, "bfloat16": 1e-2}   # flash backward, ||err|| / ||ref||
 GRANITE_TRAIN = ["--arch", "granite-moe-3b-a800m", "--batch", "4", "--seq", "512",
@@ -163,6 +187,21 @@ YI_TRAIN_LAYERS = 16               # Yi-9B cut in depth for its train state to f
 YI_TRAIN_BATCH = 2
 TRAIN_LOSS_RTOL = 1e-5             # kernel step vs plain step, f32 2-layer Yi cut
 TRAIN_GNORM_RTOL = 1e-4
+SSD_GRAD_REL = 1e-4                # the SSD backward's gradients, ||err|| / ||ref||, f32
+# (b, s, widths, chunk, ssd_inputs kwargs) of the SSD training checks: the
+# mamba2 training shape, a ragged mamba2 length, hymba's longest serving
+# prefill, and the decay extremes
+SSD_TRAIN_SHAPES = [
+    (2, 4096, MAMBA, 128, {}),
+    (1, 4001, MAMBA, 128, {}),
+    (1, 1328, HYMBA, 128, {}),
+    (1, 64, dict(nh=2, hd=16, ns=8), 16, dict(dt_fill=5.0)),
+]
+SSM_TRAIN = ["--batch", "2", "--seq", "4096"]   # phase 12: the reference's train_4k length
+SSM_TRAIN_STEPS = 4
+SSM_CKPT_EVERY = 3                 # checkpoint at step 3, resume for step 4
+HYMBA_CKPT_LAYERS = 16             # hymba's checkpointed cut (its full one is 22 GB)
+SSD_AB_ROUNDS = 2                  # phase 12's mamba2 step, each SSD backward
 
 
 def log(msg: str) -> None:
@@ -283,6 +322,11 @@ def check_paged_attention(gen, dev):
     log(f"phase 2: paged_attention split at b = 8, 40 pages of 16: grid "
         f"{paged_attention.last_grid} as launched, {n_part} partitions of {pages} pages; "
         f"ctx 1, {edge}, {2 * edge}, {edge + 1}")
+    # the serving examples' decode (deepseek-67b smoke: 8/2 heads of 8,
+    # pages of 32, a 64-token prompt and its new tokens)
+    for per in (4, 18):
+        case(1, 8, 2, 8, per, 32, torch.bfloat16,
+             ctx=torch.tensor([64 + 6], dtype=torch.int32, device=dev))
     yi_ctx = torch.tensor([p + MAX_NEW for p in PROMPTS], dtype=torch.int32, device=dev)
     case(3, YI["h"], YI["g"], YI["d"], 11, YI["bs"], torch.float32, ctx=yi_ctx)
     long_ctx = torch.full((8,), LONG_CTX, dtype=torch.int32, device=dev)
@@ -327,10 +371,14 @@ def check_flash_prefill(gen, dev):
         q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, t, g, d, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, t, g, d, generator=gen, device=dev).to(dtype)
+        what = f"flash_prefill s={s} t={t} h={h} g={g} d={d} {dtype} {kw}"
+        before = flash_prefill.launches
         out = flash_prefill(q, k, v, **kw)
         torch.cuda.synchronize()
-        return close(out, dense_ref(q, k, v, **kw), TOL[str(dtype).split(".")[1]],
-                     f"flash_prefill s={s} t={t} h={h} g={g} d={d} {dtype} {kw}", rel_norm)
+        if flash_prefill.launches != before + 1:
+            raise AssertionError(f"{what}: {flash_prefill.launches - before} launches, not 1")
+        return close(out, dense_ref(q, k, v, **kw), TOL[str(dtype).split(".")[1]], what,
+                     rel_norm)
 
     for dtype in (torch.float32, torch.bfloat16):
         for s, h, g, d in ((256, 4, 2, 64), (128, 8, 8, 32), (256, 6, 1, 128)):
@@ -338,6 +386,14 @@ def check_flash_prefill(gen, dev):
     case(1, 256, 4, 2, 32, torch.float32, causal=True, sliding_window=64, prefix_len=16)
     case(1, 128, 4, 4, 32, torch.float32, causal=False)
     case(1, 130, 4, 2, 64, torch.float32, causal=True)  # ragged
+    # the examples' shapes: the serving examples' 64-token prompts on the
+    # deepseek-67b smoke config (8/2 heads of 8; bf16 at a head dim without
+    # a tensor-core kernel runs the f32 kernel), heads of 16 (the other
+    # smoke head dim), and torch_train_lm's batch of 8 x 128
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 16):
+            case(1, 64, 8, 2, d, dtype, causal=True)
+    case(8, 128, 8, 2, 8, torch.bfloat16, causal=True)
     for d in BF16_HEAD_DIMS:  # every tensor-core kernel; one row, ragged rows
         for s in (1, 130, 257):
             case(2, s, 8, 2, d, torch.bfloat16, causal=True)
@@ -611,26 +667,61 @@ def check_ssd_scan(gen, dev):
     return err
 
 
+def check_ssd_training(gen, dev):
+    """The SSD scan's autograd Function (the kernel forward, the plain-torch
+    backward) against autograd through the plain version, f32, at
+    SSD_TRAIN_SHAPES: y and the state to ssd_scan's 1e-3, each of the six
+    gradients to SSD_GRAD_REL in ||err|| / ||ref||, finite, one kernel
+    launch a call.  Returns (max gradient error, the most device memory a
+    forward and backward added, bytes: the mamba2 training shape's)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    worst, peak = 0.0, 0
+    for b, s, w, chunk, kw in SSD_TRAIN_SHAPES:
+        nh, hd, ns = w["nh"], w["hd"], w["ns"]
+        if "dt_fill" in kw:
+            kw = kw | {"a": torch.tensor([-0.01, -8.0], device=dev)}
+        args = ssd_inputs(gen, dev, b, s, nh, hd, ns, **kw)
+        gy = torch.randn(b, s, nh, hd, generator=gen, device=dev)
+        gs = torch.randn(b, nh, hd, ns, generator=gen, device=dev)
+        what = f"ssd_scan training b={b} s={s} nh={nh} hd={hd} ns={ns} chunk={chunk} {kw}"
+        xs = [t.clone().requires_grad_(True) for t in args]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = ssd_scan.launches
+        y, st = ssd_scan(*xs, chunk=chunk)
+        ((y * gy).sum() + (st * gs).sum()).backward()
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated() - base)
+        if ssd_scan.launches != before + 1:
+            raise AssertionError(f"{what}: {ssd_scan.launches - before} kernel launches")
+        refs = [t.clone().requires_grad_(True) for t in args]
+        y_ref, st_ref = ssd_scan_ref(*refs, chunk=chunk)
+        ((y_ref * gy).sum() + (st_ref * gs).sum()).backward()
+        close(y.detach(), y_ref.detach(), SSD_TOL["float32"], what + " y")
+        close(st.detach(), st_ref.detach(), SSD_TOL["float32"], what + " state")
+        for name, x, r in zip(("x", "dt", "a", "B", "C", "d_skip"), xs, refs):
+            if not torch.isfinite(x.grad).all():
+                raise AssertionError(f"{what}: non-finite d{name}")
+            rel = float((x.grad - r.grad).norm() / r.grad.norm())
+            if not rel <= SSD_GRAD_REL:
+                raise AssertionError(f"{what}: d{name} ||err|| / ||ref|| {rel} above "
+                                     f"{SSD_GRAD_REL}")
+            worst = max(worst, rel)
+        del xs, refs, y, st, y_ref, st_ref
+    shapes = [(b, s, w["nh"], w["hd"], w["ns"]) for b, s, w, _, _ in SSD_TRAIN_SHAPES]
+    log(f"phase 2: ssd_scan's autograd Function (kernel forward, plain backward) against "
+        f"autograd through ssd_scan_ref at (b, s, nh, hd, ns) {shapes}: max ||dx, ddt, da, "
+        f"dB, dC, dD err|| / ||ref|| {worst:.3e} (limit {SSD_GRAD_REL}); a forward and "
+        f"backward added at most {peak / 1e9:.2f} GB at peak")
+    return worst, peak
+
+
 # --------------------------------------------------------- phases 3-4
-def greedy(model, logits):
-    import torch
-
-    return torch.argmax(logits[:, :model.cfg.vocab_size].float(), dim=-1).to(torch.int32)
-
-
-def monolithic_generate(model, params, tokens, n):
-    import torch
-
-    logits, state = model.prefill(params, {"tokens": torch.as_tensor(tokens[None])})
-    tok = greedy(model, logits)
-    out = [int(tok[0])]
-    for _ in range(n):
-        logits, state = model.decode_step(params, state, tok)
-        tok = greedy(model, logits)
-        out.append(int(tok[0]))
-    return out
-
-
 def monolithic_batched(model, params, prompts, n):
     """Each prompt prefilled alone, the states stacked (pages padded to one
     per-sequence count), then ``n`` decode_steps at b = len(prompts)."""
@@ -638,13 +729,15 @@ def monolithic_batched(model, params, prompts, n):
 
     import torch
 
+    from repro_torch.launch.steps import _greedy, make_serve_step
+
     bs = model.BLOCK_SIZE
     per_seq = max(-(-len(t) // bs) for t in prompts) + -(-n // bs) + 1
     firsts, states = [], []
     for t in prompts:
         logits, st = model.prefill(params, {"tokens": torch.as_tensor(t[None])},
                                    max_blocks_margin=per_seq - -(-len(t) // bs))
-        firsts.append(greedy(model, logits))
+        firsts.append(_greedy(model, logits))
         states.append(st)
     state = dataclasses.replace(
         states[0],
@@ -653,14 +746,7 @@ def monolithic_batched(model, params, prompts, n):
         v_pages=torch.cat([st.v_pages for st in states], dim=1),
         block_tables=torch.cat([st.block_tables for st in states]))
     del states
-    tok = torch.cat(firsts)
-    out = [[int(x)] for x in tok.tolist()]
-    for _ in range(n):
-        logits, state = model.decode_step(params, state, tok)
-        tok = greedy(model, logits)
-        for seq, x in zip(out, tok.tolist()):
-            seq.append(int(x))
-    return out
+    return decode_greedy(make_serve_step(model), params, state, torch.cat(firsts), n)
 
 
 def kernel_ops():
@@ -808,6 +894,7 @@ def phase_topology(model, params):
     import torch
 
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import greedy_generate
 
     cfg = model.cfg
     rng = np.random.default_rng(0)  # the launcher's prompts, drawn the same way
@@ -822,7 +909,7 @@ def phase_topology(model, params):
     counts = expect_launches("phase 3b: launch.serve --topology hetero_rack:0", read_counts(),
                              cfg.num_layers, 3, 3 * MAX_NEW, False)
     for tokens, got in zip(prompts, outs):
-        ref = monolithic_generate(model, params, tokens, MAX_NEW)
+        ref = greedy_generate(model, params, tokens, MAX_NEW)
         if got != ref:
             raise AssertionError(f"phase 3b: topology-bound {got} != monolithic {ref}")
     log(f"phase 3b: 3 requests through the topology-bound service in "
@@ -1166,7 +1253,7 @@ def phase_moe(dev):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.launch.steps import greedy_generate, make_prefill_step, make_serve_step
     from repro_torch.models.registry import build_model
 
     cfg = get_config("granite-moe-3b-a800m")
@@ -1178,7 +1265,7 @@ def phase_moe(dev):
         f"{cfg.padded_experts}; weights in {time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPTS]
-    refs = [monolithic_generate(model, params, t, MAX_NEW) for t in prompts]
+    refs = [greedy_generate(model, params, t, MAX_NEW) for t in prompts]
     serve_counts, per_request = phase_serve(model, params, prompts, refs,
                                             arch="granite-moe-3b-a800m",
                                             tags=("phase 8", "phase 8"))
@@ -1410,20 +1497,15 @@ def phase_train_granite(card):
 def phase_train_yi(dev, card):
     """Phase 11b: Yi-9B at full width cut to YI_TRAIN_LAYERS layers, two
     make_train_step steps at s = TRAIN_SEQ, b = YI_TRAIN_BATCH (remat:
-    flash_prefill exactly layers x steps x 2 times); then a 2-layer f32 cut
-    of the same widths, one step through the kernel and one through the
-    plain versions (flash_prefill's plain forward; the backward is plain
-    torch either way) from the same state: loss within TRAIN_LOSS_RTOL and
-    grad norm within TRAIN_GNORM_RTOL."""
+    flash_prefill exactly layers x steps x 2 times); then ``kernel_vs_plain``
+    at the same widths and length."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    import repro_torch.models.flash as flash_mod
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMDataset
-    from repro_torch.kernels.flash_prefill.ref import dense_ref
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.registry import build_model
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -1464,38 +1546,270 @@ def phase_train_yi(dev, card):
     del params, opt, m, model, step
     free_model()
 
+    out = kernel_vs_plain(dev, cfg, TRAIN_SEQ, "phase 11")
+    return counts, {"losses": losses, "step_s": times[1], "tokens_per_s": tokens / times[1],
+                    "peak_gb": peak / 1e9, "state_gb": state_gb, "f32_kernel_vs_plain": out}
+
+
+# ------------------------------------------------------------ phase 12
+def phase_train_ssm(dev, card):
+    """Phase 12: mamba2-780m and hymba-1.5b at their full configs through
+    ``launch.train``, batch 2 x 4096 (the reference's train_4k length; hymba
+    runs 4224 rows with its 128 meta tokens, past its 1024-token window),
+    SSM_TRAIN_STEPS steps with a checkpoint at step SSM_CKPT_EVERY: losses
+    finite, ssd_scan (and hymba's flash_prefill) exactly layers x steps x 2
+    (remat).  Then ``--resume`` from that checkpoint: the resumed step's
+    loss equals the uninterrupted run's bit for bit (hymba's full state's
+    checkpoint is 22 GB, more than a run may write beside phase 11's, so
+    hymba's restart runs at its full width cut to HYMBA_CKPT_LAYERS
+    layers).  Then each model's 2-layer f32 cut, one make_train_step step
+    through the kernels and one through the plain versions (autograd
+    through ``ssd_scan_ref``; ``dense_ref`` for the attention), from the
+    same state: loss within TRAIN_LOSS_RTOL, grad norm within
+    TRAIN_GNORM_RTOL.  Returns each model's launch counts and numbers."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    ckpt = ROOT / "build" / "ckpt"
+    counts, numbers = {}, {}
+    for arch, ckpt_layers in (("mamba2-780m", None), ("hymba-1.5b", HYMBA_CKPT_LAYERS)):
+        cfg = get_config(arch)
+        L, steps = cfg.num_layers, SSM_TRAIN_STEPS
+        common = ["--arch", arch, *SSM_TRAIN]
+        saving = ["--ckpt-dir", str(ckpt), "--ckpt-every", str(SSM_CKPT_EVERY)]
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        full = train.main(common + ["--steps", str(steps)] + ([] if ckpt_layers else saving))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        remat = L * steps * 2  # the forward runs twice a layer a step
+        counts[arch] = expect_counts(
+            f"phase 12: launch.train {arch}, {steps} steps", read_counts(),
+            {"ssd_scan": remat, "flash_prefill": remat if cfg.has_attention else 0,
+             "paged_attention": 0, "kv_pull": 0, "kv_pull_dequant": 0})
+        free_model()
+        losses = full["losses"]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 12: {arch} losses {losses}")
+        step_s = float(np.median(full["step_s"][1:]))
+        tokens = 2 * 4096
+        log(f"phase 12: {arch} full config, batch 2 x 4096, remat: losses {losses}; step "
+            f"{step_s:.4f} s (median of steps 2-{steps}; first {full['step_s'][0]:.4f} s), "
+            f"{tokens / step_s:.0f} tokens/s, peak {peak / 1e9:.2f} GB allocated; {card}")
+
+        launcher_config = train.get_config
+        if ckpt_layers:
+            cut = dataclasses.replace(cfg, num_layers=ckpt_layers)
+            train.get_config = lambda name: cut
+        try:
+            ref = losses
+            if ckpt_layers:
+                ref = train.main(common + ["--steps", str(steps)] + saving)["losses"]
+                free_model()
+            ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+            t0 = time.perf_counter()
+            rest = train.main(common + ["--steps", str(steps), "--ckpt-dir", str(ckpt),
+                                        "--ckpt-every", "100", "--resume"])["losses"]
+            free_model()
+            t_resume = time.perf_counter() - t0
+        finally:
+            train.get_config = launcher_config
+            shutil.rmtree(ckpt, ignore_errors=True)
+        if rest != ref[SSM_CKPT_EVERY:]:
+            raise AssertionError(f"phase 12: {arch} resumed losses {rest} != uninterrupted "
+                                 f"{ref[SSM_CKPT_EVERY:]}")
+        depth = f"cut to {ckpt_layers} layers" if ckpt_layers else "full config"
+        log(f"phase 12: {arch} {depth}: checkpoint at step {SSM_CKPT_EVERY} "
+            f"({ckpt_bytes / 1e9:.2f} GB), --resume (with its restore {t_resume:.1f} s) "
+            f"gave losses {rest} = the uninterrupted run's bit for bit")
+        numbers[arch] = {"losses": losses, "step_s": step_s, "tokens_per_s": tokens / step_s,
+                         "peak_gb": peak / 1e9, "checkpoint_gb": ckpt_bytes / 1e9,
+                         "f32_kernel_vs_plain": kernel_vs_plain(dev, cfg, 4096, "phase 12")}
+    numbers["mamba2-780m"]["backward_ab"] = ssd_backward_step_ab(get_config("mamba2-780m"))
+    return counts, numbers
+
+
+def kernel_vs_plain(dev, cfg, seq, phase):
+    """``cfg`` cut to 2 layers in f32: one make_train_step step (remat) at
+    1 x ``seq`` through the kernels and one through the plain versions
+    (``dense_ref`` for flash_prefill's forward, autograd through
+    ``ssd_scan_ref`` for the SSD scan; the flash backward is plain torch
+    either way) from the same state; the losses within TRAIN_LOSS_RTOL and
+    the gradient norms within TRAIN_GNORM_RTOL, the kernel step launching
+    flash_prefill and ssd_scan (where the model has them) exactly 2
+    layers x 2, the plain step neither."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.models.flash as flash_mod
+    import repro_torch.models.ssm as ssm_mod
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.kernels.flash_prefill.ref import dense_ref
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
     cfg2 = dataclasses.replace(cfg, num_layers=2)
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=1)
     model = build_model(cfg2)
-    batch = {"tokens": torch.as_tensor(data.next_batch()["tokens"][:1], device=dev)}
+    tokens = SyntheticLMDataset(cfg2.vocab_size, seq, 1).next_batch()["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    plain = {(flash_mod, "flash_prefill"): dense_ref,
+             (ssm_mod, "ssd_scan"): lambda *a, chunk=128: ssd_scan_ref(*a, chunk=chunk)}
+    kernels = {key: getattr(*key) for key in plain}
     out = {}
-    kernel_fn = flash_mod.flash_prefill
     for route in ("kernel", "plain"):
         params = cast_tree(model.init_params(0), torch.float32)
         opt = adamw_init(params, ocfg)
         if route == "plain":
-            flash_mod.flash_prefill = lambda q, k, v, **kw: dense_ref(q, k, v, **kw)
+            for (mod, attr), fn in plain.items():
+                setattr(mod, attr, fn)
         reset_counts()
         try:
             _, _, m = make_train_step(model, ocfg, remat=True)(params, opt, batch)
+            out[route] = (float(m["loss"]), float(m["grad_norm"]))
         finally:
-            flash_mod.flash_prefill = kernel_fn
-        got = read_counts()["flash_prefill"]
-        if got != (2 * 2 if route == "kernel" else 0):
-            raise AssertionError(f"phase 11: f32 2-layer {route} step: flash_prefill {got}")
-        out[route] = (float(m["loss"]), float(m["grad_norm"]))
+            for (mod, attr), fn in kernels.items():
+                setattr(mod, attr, fn)
+        want = 2 * 2 if route == "kernel" else 0
+        expect_counts(f"{phase}: {cfg.name} 2 layers f32, a {route} step", read_counts(),
+                      {"flash_prefill": want if cfg.has_attention else 0,
+                       "ssd_scan": want if cfg.has_ssm else 0})
         del params, opt, m
         free_model()
     (lk, gk), (lp, gp) = out["kernel"], out["plain"]
     if abs(lk - lp) > TRAIN_LOSS_RTOL * abs(lp) or abs(gk - gp) > TRAIN_GNORM_RTOL * abs(gp):
-        raise AssertionError(f"phase 11: f32 2-layer step kernel {out['kernel']} != plain "
-                             f"{out['plain']}")
-    log(f"phase 11: yi-9b widths, 2 layers, f32, 1 x {TRAIN_SEQ}: kernel step loss {lk!r} "
-        f"grad norm {gk!r}; plain step loss {lp!r} grad norm {gp!r} (limits "
-        f"{TRAIN_LOSS_RTOL} / {TRAIN_GNORM_RTOL} relative)")
+        raise AssertionError(f"{phase}: {cfg.name} f32 2-layer step kernel {out['kernel']} "
+                             f"!= plain {out['plain']}")
+    log(f"{phase}: {cfg.name} widths, 2 layers, f32, 1 x {seq}: kernel step loss {lk!r} grad "
+        f"norm {gk!r}; plain step loss {lp!r} grad norm {gp!r} (limits {TRAIN_LOSS_RTOL} / "
+        f"{TRAIN_GNORM_RTOL} relative)")
     del model
     free_model()
-    return counts, {"losses": losses, "step_s": times[1], "tokens_per_s": tokens / times[1],
-                    "peak_gb": peak / 1e9, "state_gb": state_gb, "f32_kernel_vs_plain": out}
+    return out
+
+
+def ssd_backward_autograd_recompute(inputs, dy, dstate, *, chunk=128):
+    """The SSD backward's first design, kept as the reference its chosen
+    design is timed against: ``ssd_scan_ref`` run again from the saved
+    inputs under autograd and differentiated (``torch.autograd.grad``); the
+    signature of ``ops.ssd_scan_backward``."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        outs = ssd_scan_ref(*leaves, chunk=chunk)
+        read = [(o, g) for o, g in zip(outs, (dy, dstate)) if g is not None]
+        return torch.autograd.grad([o for o, _ in read], leaves, [g for _, g in read])
+
+
+def ssd_backward_step_ab(cfg):
+    """Phase 12: launch.train's mamba2 step (``make_train_step``, remat,
+    batch 2 x 4096, the full config) timed on the host's clock with each
+    SSD backward in this one call: two warm-up steps (one each), then
+    SSD_AB_ROUNDS rounds of chosen, recompute, recompute, chosen, the
+    device synchronised around each step; each design's median step time
+    and the most memory a step of it allocated."""
+    import math
+    import statistics
+
+    import torch
+
+    import repro_torch.kernels.ssd_scan.ops as ssd_ops
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    model = build_model(cfg)
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=100,
+                       fp32_master=cfg.fp32_master)
+    params = model.init_params(0)
+    opt = adamw_init(params, ocfg)
+    tokens = SyntheticLMDataset(cfg.vocab_size, 4096, 2).next_batch()["tokens"]
+    batch = {"tokens": torch.as_tensor(tokens, device=model.device)}
+    step = make_train_step(model, ocfg, remat=True)
+    designs = {"chosen": ssd_ops.ssd_scan_backward,
+               "autograd_recompute": ssd_backward_autograd_recompute}
+    order = ["chosen", "autograd_recompute"] + \
+        ["chosen", "autograd_recompute", "autograd_recompute", "chosen"] * SSD_AB_ROUNDS
+    times = {k: [] for k in designs}
+    peaks = {k: 0 for k in designs}
+    try:
+        for i, name in enumerate(order):
+            ssd_ops.ssd_scan_backward = designs[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            if not math.isfinite(float(m["loss"])):
+                raise AssertionError(f"phase 12: backward A/B {name}: loss {m['loss']}")
+            torch.cuda.synchronize()
+            if i >= len(designs):  # the first step of each is its warm-up
+                times[name].append(time.perf_counter() - t0)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+    finally:
+        ssd_ops.ssd_scan_backward = designs["chosen"]
+    del model, params, opt, m
+    free_model()
+    out = {f"{k}_step_s": statistics.median(v) for k, v in times.items()}
+    out |= {f"{k}_steps_s": v for k, v in times.items()}
+    out |= {f"{k}_peak_gb": p / 1e9 for k, p in peaks.items()}
+    log(f"phase 12: {cfg.name} step with each SSD backward, one call, "
+        f"{SSD_AB_ROUNDS} rounds of chosen/recompute/recompute/chosen after a warm-up "
+        f"each: chosen (derived by hand) {out['chosen_step_s']:.4f} s "
+        f"{times['chosen']}, peak {out['chosen_peak_gb']:.2f} GB; autograd recompute "
+        f"{out['autograd_recompute_step_s']:.4f} s {times['autograd_recompute']}, peak "
+        f"{out['autograd_recompute_peak_gb']:.2f} GB")
+    return out
+
+
+# ------------------------------------------------------------ phase 13
+EXAMPLE_RUNS = {  # example -> (arguments, kernels it must launch at least once)
+    "torch_quickstart": ([], ("kv_pull",)),
+    "torch_serve_disaggregated": ([], ("flash_prefill", "paged_attention", "kv_pull")),
+    "torch_serve_routed": ([], ("flash_prefill", "paged_attention", "kv_pull")),
+    "torch_serve_streaming": ([], ("flash_prefill", "paged_attention", "kv_pull")),
+    "torch_train_lm": ([], ("flash_prefill",)),
+}
+
+
+def phase_examples():
+    """Phase 13: each port example's ``main`` on the card with its default
+    arguments (``--device cuda``), a path of its own: its self-checks hold
+    (served tokens equal monolithic greedy generation, the resumed losses
+    equal the uninterrupted ones), and each kernel it must use launched.
+    Returns each example's launch counts."""
+    import importlib.util
+
+    import torch
+
+    counts = {}
+    for name, (argv, kernels) in EXAMPLE_RUNS.items():
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_counts()
+        t0 = time.perf_counter()
+        mod.main(argv)
+        torch.cuda.synchronize()
+        counts[name] = expect_counts(f"phase 13: examples/{name}.py in "
+                                     f"{time.perf_counter() - t0:.1f}s", read_counts(),
+                                     {k: 0 for k in kernel_ops() if k not in kernels},
+                                     at_least={k: 1 for k in kernels})
+        free_model()
+    return counts
 
 
 # ------------------------------------------------------------ phase 5
@@ -1609,6 +1923,64 @@ def ssd_time_row(gen, dev, s, nh, hd, ns, what):
         launch_us=launch_us(lambda: ssd_scan(x, dt, a, B, C, d_skip), r"ssd_\w+_kernel"),
         shape=f"{what}: b=1 s={s} nh={nh} hd={hd} ns={ns} f32, chunk {KERNEL_CHUNK}; "
               f"bound at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32")
+
+
+def ssd_train_rows(gen, dev):
+    """The training path's SSD scan at mamba2-780m's training shape (b = 2,
+    s = 4096, f32, chunk 128), one layer: the kernel forward as the
+    Function runs it, and the backward (``ssd_scan_backward``: plain torch
+    derived by hand, the forward's steps run again from the saved inputs;
+    no Pallas counterpart), timed from Python over 5 calls, with the device
+    memory it adds at peak, beside the first design
+    (``ssd_backward_autograd_recompute``, ``autograd_recompute_ms``; phase
+    12 times a whole step with each).  The backward's bound: its
+    bytes (x, dt, a, B, C, d_skip, dy and dstate read, the six gradients
+    written) at 3.35 TB/s or twice the forward's operations at 495 TFLOP/s
+    TF32, whichever is larger.  Plain: autograd through ``ssd_scan_ref``'s
+    kept graph (``torch.autograd.grad``).  No library call computes it."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    b, s, nh, hd, ns, chunk = 2, 4096, MAMBA["nh"], MAMBA["hd"], MAMBA["ns"], 128
+    args = ssd_inputs(gen, dev, b, s, nh, hd, ns)
+    dy = torch.randn(b, s, nh, hd, generator=gen, device=dev)
+    dstate = torch.randn(b, nh, hd, ns, generator=gen, device=dev)
+    in_bytes = sum(t.numel() * 4 for t in args)
+    flops = ssd_flops(b, s, nh, hd, ns, chunk)
+    shape = f"mamba2-780m train: b={b} s={s} nh={nh} hd={hd} ns={ns} f32, chunk {chunk}"
+    fwd = dict(
+        ms=time_ms(lambda: ssd_scan(*args, chunk=chunk)),
+        call_ms=call_ms(lambda: ssd_scan(*args, chunk=chunk)),
+        plain_ms=call_ms(lambda: ssd_scan_ref(*args, chunk=chunk), iters=5, warmup=1),
+        library_ms=None,
+        bound=bound_ms(in_bytes + args[0].numel() * 4 + dstate.numel() * 4,
+                       ssd_flops(b, s, nh, hd, ns, 64), PEAK_TF32_FLOPS),
+        shape=f"{shape} (the kernel scans chunks of 64); plain over 5 calls")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_ms = call_ms(lambda: ssd_scan_backward(args, dy, dstate, chunk=chunk), iters=5,
+                     warmup=1)
+    peak = torch.cuda.max_memory_allocated() - base
+    refs = [t.clone().requires_grad_(True) for t in args]
+    outs = ssd_scan_ref(*refs, chunk=chunk)
+    bwd = dict(
+        ms=bwd_ms, call_ms=bwd_ms,
+        autograd_recompute_ms=call_ms(
+            lambda: ssd_backward_autograd_recompute(args, dy, dstate, chunk=chunk), iters=5,
+            warmup=1),
+        plain_ms=call_ms(lambda: torch.autograd.grad(outs, refs, (dy, dstate),
+                                                     retain_graph=True), iters=5, warmup=1),
+        library_ms=None,
+        bound=bound_ms(2 * in_bytes + dy.numel() * 4 + dstate.numel() * 4, 2 * flops,
+                       PEAK_TF32_FLOPS),
+        peak_gb=peak / 1e9,
+        shape=f"{shape}: the SSD backward (plain torch derived by hand, the forward's "
+              f"steps run again; no Pallas counterpart), timed from Python over 5 calls; "
+              f"plain = autograd.grad through ssd_scan_ref's kept graph")
+    return {"forward": fwd, "backward": bwd}
 
 
 def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI):
@@ -1822,6 +2194,7 @@ def other_time_rows(gen, dev):
     rows["ssd_scan"]["also"] = [ssd_time_row(
         gen, dev, max(HYMBA_PROMPTS) + HYMBA["meta"], HYMBA["nh"], HYMBA["hd"],
         HYMBA["ns"], "hymba-1.5b")]
+    rows["ssd_scan"]["training"] = ssd_train_rows(gen, dev)
     return rows
 
 
@@ -1880,11 +2253,13 @@ def main() -> int:
         "ssd_scan": check_ssd_scan(gen, dev),
     }
     lse_err, bwd_err = check_flash_training(gen, dev)
+    ssd_grad_err, ssd_bwd_peak = check_ssd_training(gen, dev)
     log(f"phase 2: every kernel matches its plain version; max |err| at full width "
         f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}; "
         f"{time.perf_counter() - t0:.1f}s")
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.steps import greedy_generate
     from repro_torch.models.registry import build_model
 
     cfg = get_config("yi-9b")
@@ -1895,7 +2270,7 @@ def main() -> int:
     log(f"{cfg.describe()}; weights in {time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in PROMPTS]
-    refs = [monolithic_generate(model, params, t, MAX_NEW) for t in prompts]
+    refs = [greedy_generate(model, params, t, MAX_NEW) for t in prompts]
     serve_counts, per_request = phase_serve(model, params, prompts, refs)
     topo_counts = phase_topology(model, params)
     del params, model
@@ -1923,6 +2298,12 @@ def main() -> int:
     granite_train_counts, granite_train = phase_train_granite(card)
     yi_train_counts, yi_train = phase_train_yi(dev, card)
     log(f"phase 11: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ssm_train_counts, ssm_train = phase_train_ssm(dev, card)
+    log(f"phase 12: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    example_counts = phase_examples()
+    log(f"phase 13: {time.perf_counter() - t0:.1f}s")
     # each kernel's launches in the new phases' runs, per request where the
     # run served several
     later = {
@@ -1935,6 +2316,9 @@ def main() -> int:
         "phase 3b yi-9b launch.serve --topology hetero_rack:0": topo_counts,
         "phase 11 granite-moe launch.train, 6 steps": granite_train_counts,
         f"phase 11 yi-9b {YI_TRAIN_LAYERS} layers, 2 train steps": yi_train_counts,
+        **{f"phase 12 {arch} launch.train, {SSM_TRAIN_STEPS} steps": c
+           for arch, c in ssm_train_counts.items()},
+        **{f"phase 13 examples/{name}.py": c for name, c in example_counts.items()},
     }
 
     t0 = time.perf_counter()
@@ -1956,6 +2340,17 @@ def main() -> int:
         extra["launches_later_phases"] = {run: c[name] for run, c in later.items()}
         if name == "kv_pull":
             extra["bytes_pulled_llava"] = llava_pulled
+        if name == "ssd_scan":
+            tr = row["training"]
+            extra["training"] = {
+                "forward": timing(tr["forward"]),
+                "backward": timing(tr["backward"]) | {
+                    "max_rel_err": ssd_grad_err, "peak_gb": tr["backward"]["peak_gb"],
+                    "autograd_recompute_ms": tr["backward"]["autograd_recompute_ms"],
+                    "mamba2_step_ab": ssm_train["mamba2-780m"]["backward_ab"],
+                    "check_peak_gb": ssd_bwd_peak / 1e9,
+                    "launches_per_step": "none (plain torch); the forward launches "
+                                         "layers x 2 a step under remat"}}
         if name == "flash_prefill":
             tr = row["training"]
             extra["training"] = {
@@ -1984,6 +2379,21 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {fmt_ms(r['library_ms'])}, bound "
             f"{r['bound'][0]:.5f} ms by {r['bound'][1]}"
             + (f"; without lse {r['ms_without_lse']:.4f} ms" if "ms_without_lse" in r else ""))
+    tr = rows["ssd_scan"]["training"]
+    for what, r in (("training forward", tr["forward"]), ("training backward", tr["backward"])):
+        log(f"phase 5: ssd_scan {what} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library none, bound {r['bound'][0]:.5f} ms by "
+            f"{r['bound'][1]}" + (f"; peak {r['peak_gb']:.2f} GB above its inputs; the "
+                                  f"plain forward again under autograd "
+                                  f"{r['autograd_recompute_ms']:.4f} ms"
+                                  if "peak_gb" in r else ""))
+    for arch, n in ssm_train.items():
+        log(f"phase 12 summary ({card}): {arch} step {n['step_s']:.4f} s, "
+            f"{n['tokens_per_s']:.0f} tokens/s, peak {n['peak_gb']:.2f} GB")
+    ab = ssm_train["mamba2-780m"]["backward_ab"]
+    log(f"phase 12 summary ({card}): mamba2-780m step, SSD backward derived by hand "
+        f"{ab['chosen_step_s']:.4f} s vs autograd recompute "
+        f"{ab['autograd_recompute_step_s']:.4f} s (same call)")
     log(f"phase 11 summary ({card}): granite-moe step {granite_train['step_s']:.4f} s, "
         f"{granite_train['tokens_per_s']:.0f} tokens/s, peak {granite_train['peak_gb']:.2f} GB; "
         f"yi-9b x{YI_TRAIN_LAYERS} layers step {yi_train['step_s']:.4f} s, "

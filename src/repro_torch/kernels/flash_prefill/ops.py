@@ -1,6 +1,8 @@
 """Blockwise prefill attention: the CUDA kernels on CUDA tensors
-(``csrc/flash_prefill.cu``: bf16 on the tensor cores, f32 with scalar
-FMA), the plain version on CPU tensors."""
+(``csrc/flash_prefill.cu``: bf16 on the tensor cores at head dims 32, 64
+and 128, f32 with scalar FMA at any head dim up to 128, which also takes
+bf16 calls at the other head dims in f32), the plain version on CPU
+tensors."""
 from __future__ import annotations
 
 import torch
@@ -63,13 +65,19 @@ def flash_prefill(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                          prefix_len=prefix_len, return_lse=return_lse)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_prefill: inputs must be contiguous")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_prefill: head_dim {d} > {MAX_HEAD_DIM}")
+    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
+        # the tensor-core kernels are built for BF16_HEAD_DIMS only (the smoke
+        # configs' heads of 8 or 16 are not among them): the f32 kernel takes
+        # the f32 copies (exact), its output rounded to bf16 once
+        got = flash_prefill(q.float(), k.float(), v.float(), causal=causal,
+                            sliding_window=sliding_window, prefix_len=prefix_len,
+                            return_lse=return_lse)
+        return (got[0].to(q.dtype), got[1]) if return_lse else got.to(q.dtype)
     if q.dtype == torch.bfloat16:
-        if d not in BF16_HEAD_DIMS:
-            raise ValueError(f"flash_prefill: bf16 head_dim {d} not in {BF16_HEAD_DIMS}")
         if any(x.data_ptr() % 16 for x in (q, k, v)):
             raise ValueError("flash_prefill: bf16 inputs must be 16-byte aligned")
-    elif d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_prefill: head_dim {d} > {MAX_HEAD_DIM}")
     lib = build.library()
     build.check_design("flash_prefill", DESIGN, lib)
     out = torch.empty_like(q)

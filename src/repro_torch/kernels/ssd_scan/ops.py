@@ -1,15 +1,24 @@
 """Mamba-2 SSD chunked scan: the CUDA kernels on CUDA tensors
 (``csrc/ssd_scan.cu``: C.B^T per chunk beside each chunk's decay cumsum
 and own state, then the state passing, then the outputs; three launches
-of one C entry, one count), the plain version on CPU tensors."""
+of one C entry, one count), the plain version on CPU tensors.
+
+With grad enabled and an input that requires it, the call goes through
+``SSDScan``, an autograd Function: its forward is the same kernel (or
+plain version), its backward the gradient of the plain version, in
+plain torch from the saved inputs (``ref.ssd_chunked_backward``).  The
+reference has no Pallas backward either: JAX differentiates its jnp
+oracle (``repro.models.ssm._ssd_chunked``).
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_backward, ssd_scan_ref
 
-__all__ = ["ssd_scan", "KERNEL_CHUNK", "HD_TILE", "THREADS", "DESIGN", "chunking"]
+__all__ = ["ssd_scan", "ssd_scan_backward", "SSDScan", "KERNEL_CHUNK", "HD_TILE", "THREADS",
+           "DESIGN", "chunking"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel's design as this module models it; ``ssd_scan_design`` in the
@@ -49,16 +58,22 @@ def ssd_scan(x, dt, a, B, C, d_skip, *, chunk: int = 128):
     D term, final state [b, nh, hd, ns] f32).  Any s: rows past the end
     count as dt = 0, x = 0.  ``chunk`` is the plain version's chunk; the
     kernel scans in chunks of min(chunk, KERNEL_CHUNK) (the SSD result
-    does not depend on it, only the order of the sums does)."""
+    does not depend on it, only the order of the sums does).  Differentiable
+    in all six inputs (``SSDScan``)."""
     _validate(x, dt, a, B, C, d_skip)
     if chunk < 1:
         raise ValueError(f"ssd_scan: chunk must be positive, got {chunk}")
+    inputs = (x, dt, a, B, C, d_skip)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return SSDScan.apply(*inputs, chunk)
+    return _forward(*inputs, chunk)
+
+
+def _forward(x, dt, a, B, C, d_skip, chunk):
+    """The kernel on CUDA tensors (a build or launch error raises), the
+    plain version on CPU tensors."""
     if not build.on_cuda("ssd_scan", x, dt, a, B, C, d_skip):
         return ssd_scan_ref(x, dt, a, B, C, d_skip, chunk=chunk)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, B, C, d_skip)):
-        # the kernel has no backward: its output would silently cut the graph
-        raise RuntimeError("ssd_scan: the CUDA kernel has no backward; SSM and hybrid "
-                           "training on the card is not supported yet (inputs require grad)")
     for t in (x, dt, a, B, C, d_skip):
         if not t.is_contiguous():
             raise ValueError("ssd_scan: inputs must be contiguous")
@@ -85,3 +100,39 @@ def ssd_scan(x, dt, a, B, C, d_skip, *, chunk: int = 128):
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_backward(inputs, dy, dstate, *, chunk: int = 128):
+    """Gradients of ``ssd_scan_ref`` (the port's copy of the reference's
+    ``_ssd_chunked`` plus the D term) for ``inputs`` = (x, dt, a, B, C,
+    d_skip), given the output gradients ``dy`` and ``dstate`` (either may be
+    None: that output was not read), at the caller's ``chunk``: the SSD's
+    by ``ssd_chunked_backward`` (plain torch, derived by hand; it runs the
+    forward's steps again from the inputs), the D term's here.  Returns
+    one gradient per input, in its dtype."""
+    x, dt, a, B, C, d_skip = inputs
+    dx, ddt, da, dB, dC = ssd_chunked_backward(x, dt, a, B, C, dy, dstate, chunk)
+    if dy is None:
+        dd = torch.zeros(d_skip.shape, dtype=torch.float32, device=d_skip.device)
+    else:
+        dy = dy.float()
+        dx = dx + dy * d_skip.float()[None, None, :, None]
+        dd = (dy * x.float()).sum((0, 1, 3))
+    return tuple(g.to(t.dtype) for g, t in zip((dx, ddt, da, dB, dC, dd), inputs))
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with a gradient: the forward is ``_forward`` (the kernel
+    on CUDA tensors, counted as any launch), the backward
+    ``ssd_scan_backward`` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B, C, d_skip, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an output nobody read gets None
+        ctx.save_for_backward(x, dt, a, B, C, d_skip)
+        return _forward(x, dt, a, B, C, d_skip, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):  # autograd drops the gradients of inputs without grad
+        return (*ssd_scan_backward(ctx.saved_tensors, dy, dstate, chunk=ctx.chunk), None)

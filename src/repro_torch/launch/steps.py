@@ -27,7 +27,7 @@ from repro_torch.tree import leaves, unflatten
 
 __all__ = [
     "SHAPES", "ShapeSpec", "input_specs", "make_train_step", "make_prefill_step",
-    "make_serve_step", "cell_is_runnable", "skip_reason",
+    "make_serve_step", "greedy_generate", "cell_is_runnable", "skip_reason",
 ]
 
 
@@ -157,3 +157,16 @@ def make_serve_step(model):
         return _greedy(model, logits), state
 
     return serve_step
+
+
+def greedy_generate(model, params, tokens, max_new: int) -> list[int]:
+    """Monolithic greedy generation of one prompt (``tokens`` [s]): the
+    prefill step's token, then ``max_new`` serve steps at b = 1 -- what a
+    served request must return with the same weights."""
+    prefill_step, serve_step = make_prefill_step(model), make_serve_step(model)
+    tok, state = prefill_step(params, {"tokens": torch.as_tensor(tokens)[None]})
+    out = [int(tok[0])]
+    for _ in range(max_new):
+        tok, state = serve_step(params, state, tok)
+        out.append(int(tok[0]))
+    return out

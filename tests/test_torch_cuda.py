@@ -275,10 +275,30 @@ def test_moe_apply_on_the_card_matches_its_cpu_run(gen, dtype):
 
 @pytest.mark.cuda
 def test_flash_prefill_bf16_rejects_other_head_dims(gen):
-    q, k = randn(gen, 1, 16, 2, 96, dtype=torch.bfloat16), \
-        randn(gen, 1, 16, 1, 96, dtype=torch.bfloat16)
+    """Head dims above 128 have no kernel (96 and the smoke configs' 8 now
+    run the f32 kernel: test_flash_prefill_bf16_small_head_dims)."""
+    q, k = randn(gen, 1, 16, 2, 160, dtype=torch.bfloat16), \
+        randn(gen, 1, 16, 1, 160, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill(q, k, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 96])
+def test_flash_prefill_bf16_small_head_dims(gen, d):
+    """bf16 at a head dim the tensor-core kernels lack (the deepseek-67b
+    smoke config's 8, which the examples serve): the f32 kernel on f32
+    copies, one launch, out in bf16 and lse as the plain version's."""
+    q = randn(gen, 2, 70, 8, d, dtype=torch.bfloat16)
+    k, v = randn(gen, 2, 70, 2, d, dtype=torch.bfloat16), randn(gen, 2, 70, 2, d,
+                                                               dtype=torch.bfloat16)
+    before = flash_prefill.launches
+    out, lse = flash_prefill(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1 and out.dtype == torch.bfloat16
+    ref, ref_lse = dense_ref(q.float(), k.float(), v.float(), return_lse=True)
+    torch.testing.assert_close(out.float(), ref, rtol=TOL[torch.bfloat16], atol=TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, rtol=TOL[torch.float32], atol=TOL[torch.float32])
 
 
 @pytest.mark.cuda
@@ -509,6 +529,7 @@ TRAIN_SHAPES = [
     (1, 2048, 2048, 32, 4, 128, dict(causal=True)),
     (1, 1500, 1500, 20, 20, 64, dict(causal=False)),
     (1, 1328, 1328, 25, 5, 64, dict(causal=True, sliding_window=1024, prefix_len=128)),
+    (8, 128, 128, 8, 2, 8, dict(causal=True)),   # examples/torch_train_lm.py
 ]
 LSE_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
@@ -559,18 +580,74 @@ def test_flash_backward_matches_autograd_through_the_plain_version(gen, b, s, t,
 
 
 @pytest.mark.cuda
-def test_ssd_scan_refuses_autograd_on_cuda(gen):
+def test_ssd_scan_autograd_on_cuda_launches_the_kernel_once(gen):
+    """With inputs that require grad the wrapper goes through ``SSDScan``, whose
+    forward is the kernel (one launch) and whose backward is the plain
+    version's gradient; under no_grad it launches the kernel alone."""
     b, s, nh, hd, ns = 1, 64, 4, 16, 8
     x = randn(gen, b, s, nh, hd).requires_grad_(True)
     dt = torch.rand(b, s, nh, generator=gen, device="cuda") * 0.1
     a = -torch.rand(nh, generator=gen, device="cuda")
     B, C = randn(gen, b, s, ns), randn(gen, b, s, ns)
     d_skip = torch.ones(nh, device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd_scan(x, dt, a, B, C, d_skip)
+    before = ssd_scan.launches
+    y, _ = ssd_scan(x, dt, a, B, C, d_skip)
+    assert ssd_scan.launches == before + 1 and y.grad_fn is not None
+    y.sum().backward()
+    assert ssd_scan.launches == before + 1 and torch.isfinite(x.grad).all()
     with torch.no_grad():  # inference through the kernel still runs
         y, _ = ssd_scan(x, dt, a, B, C, d_skip)
-    assert torch.isfinite(y).all()
+    assert torch.isfinite(y).all() and y.grad_fn is None
+    assert ssd_scan.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,widths", [(1, 257, MAMBA2), (2, 1100, MAMBA2), (1, 1328, HYMBA)])
+def test_ssd_scan_function_matches_autograd_through_the_plain_version(gen, b, s, widths):
+    """The Function on the kernel route (the kernel forward, the plain
+    backward) against torch autograd through ``ssd_scan_ref``, f32, at
+    mamba2-780m and hymba-1.5b widths: y to 1e-3 (ssd_scan's tolerance),
+    each of the six gradients to 1e-4 in ||err|| / ||ref|| (the backward
+    is derived by hand from the same inputs: only the order of sums
+    differs)."""
+    args = ssd_inputs(gen, b, s, *widths)
+    gy = randn(gen, *args[0].shape)
+    gs = randn(gen, b, widths[0], widths[1], widths[2])
+    xs = [t.clone().requires_grad_(True) for t in args]
+    refs = [t.clone().requires_grad_(True) for t in args]
+    before = ssd_scan.launches
+    y, st = ssd_scan(*xs)
+    ((y * gy).sum() + (st * gs).sum()).backward()
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    y_ref, st_ref = ssd_scan_ref(*refs)
+    ((y_ref * gy).sum() + (st_ref * gs).sum()).backward()
+    torch.testing.assert_close(y, y_ref, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+    for name, x, r in zip(("x", "dt", "a", "B", "C", "d_skip"), xs, refs):
+        assert torch.isfinite(x.grad).all(), name
+        assert rel_norm(x.grad, r.grad) < 1e-4, name
+
+
+@pytest.mark.cuda
+def test_ssm_prefill_without_grad_launches_once_a_layer(gen):
+    """The serving paths keep calling the kernel directly: a mamba2 smoke
+    prefill under no_grad launches ssd_scan once a layer and builds no
+    graph, even with parameters that require grad."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import leaves
+
+    model = build_model(get_smoke_config("mamba2-780m"), device="cuda")
+    params = model.init_params(0)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    tokens = torch.randint(0, 512, (1, 70), generator=gen, device="cuda")
+    before = ssd_scan.launches
+    with torch.no_grad():
+        logits, _ = model.prefill(params, {"tokens": tokens})
+    assert ssd_scan.launches == before + model.cfg.num_layers
+    assert logits.grad_fn is None
 
 
 @pytest.mark.cuda

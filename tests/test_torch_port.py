@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch/CUDA port.
 
-* nothing under ``src/repro_torch/`` and nothing in ``chip_smoke.py``
-  imports ``jax``, the JAX package ``repro`` or ``ml_dtypes`` (the card's
+* nothing under ``src/repro_torch/``, in the port's examples
+  (``examples/torch_*.py``) or in ``chip_smoke.py`` imports ``jax``, the JAX package ``repro`` or ``ml_dtypes`` (the card's
   machine has none of them);
 * the verbatim copies of pure-Python modules say where they came from and
   differ from their source only in ``repro.`` -> ``repro_torch.``;
@@ -34,7 +34,8 @@ def _imports(path: pathlib.Path) -> set[str]:
     return names
 
 
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+              + [ROOT / "chip_smoke.py"])
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
