@@ -31,6 +31,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    through the plain version: y and the state to 1e-3, the six gradients to
    1e-4 in ||err|| / ||ref||, at mamba2-780m's training shape (2 x 4096), a
    ragged mamba2 length, hymba-1.5b's widths and the decay extremes.
+   paged_attention's lse output (``return_lse``) against the plain
+   version: one partition and several, contexts of 0 (out 0, lse -inf,
+   no NaN) and phase 14's rank-local slice at Yi widths, f32 and bf16.
    Phase 1 also fails unless the SASS of
    the ssd_scan kernels that multiply holds tensor-core (HMMA)
    instructions.
@@ -86,6 +89,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    f32, prefill(p) + decode_step(t) against prefill(p + t).
    Phases 8-10 zero and check their own launch counts, as 3-7 do, and
    free each model before the next is built.
+14. Serving under a ("data", "model") device mesh of 4 ranks spawned with
+   ``torch.multiprocessing`` (gloo over the one card; nccl where each rank
+   has a card, ``--phase 14`` alone): Yi-9B at its full config tensor
+   parallel over (1, 4) on 3 x 1024 tokens (the pages split over 'model':
+   the sequence-parallel paged_attention combine, a full, a partial and
+   an empty slice) and 3 x 96 (pages whole), granite-moe-3b-a800m folded
+   over (2, 2) (experts over 'data', all_to_all both ways, the FSDP
+   expert shards gathered), then both at full width cut in depth in f32;
+   each against a single-card run of the same seed and prompts, logits
+   and tokens under the margin rule of ``repro_torch.parity``; each
+   rank's launches exact; a decode step's collectives by kind.
 11. Training: granite-moe-3b-a800m at its full config (every layer and
    expert) through ``launch.train``, batch 4 x 512, 6 steps, the losses
    finite and falling; then, at its full width cut to 8 layers (the full
@@ -123,7 +137,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    forward with lse at Yi-9B s = 2048 (beside the call without it) and the
    training backward (plain torch after ``_bwd_scan``) at the same shape;
    ssd_scan's forward and backward (plain torch, no Pallas counterpart) at
-   mamba2-780m's training shape, 2 x 4096.
+   mamba2-780m's training shape, 2 x 4096; paged_attention with lse at
+   phase 14's rank-local slice beside the call without it.
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -202,6 +217,17 @@ SSM_TRAIN_STEPS = 4
 SSM_CKPT_EVERY = 3                 # checkpoint at step 3, resume for step 4
 HYMBA_CKPT_LAYERS = 16             # hymba's checkpointed cut (its full one is 22 GB)
 SSD_AB_ROUNDS = 2                  # phase 12's mamba2 step, each SSD backward
+MESH_RANKS = 4                     # phase 14's ranks (one card: gloo)
+MESH_YI_BATCHES = ((3, 1024), (3, 96))   # (batch, tokens): 48 pages (12 a rank), then 19
+MESH_GRANITE_BATCH = (4, 128)      # 512 tokens: 4 groups of 128, one a rank
+MESH_F32_LAYERS = {"yi-9b": 8, "granite-moe-3b-a800m": 4}   # the f32 runs' depth cuts
+# logits of a mesh run against the single card's, first step: in bf16 two
+# computations of other shapes round at other places and random weights
+# amplify it over the layers (about 0.14 at Yi's 48, 0.06 at granite's 32,
+# granite folded having no tensor parallelism at all); f32 at the plain
+# versions' 2e-4 scaled by the depth
+MESH_LOGIT_TOL = {"bfloat16": 0.25, "float32": 2e-3}
+MESH_TIMEOUT = 900.0
 
 
 def log(msg: str) -> None:
@@ -352,6 +378,65 @@ def check_paged_attention(gen, dev):
         f"llama4-maverick 40/8 d 128 (grid {paged_attention.last_grid} at the last), "
         f"llava 32/8 d 128 over {int(llava_ctx[0])} tokens")
     return case(3, YI["h"], YI["g"], YI["d"], 11, YI["bs"], torch.bfloat16, ctx=yi_ctx)
+
+
+def close_lse(lse, ref, tol, what):
+    """lse [b, h] f32 against the plain version's: -inf exactly where the
+    plain version's is (a context of 0), the rest within ``tol``."""
+    import torch
+
+    empty = torch.isneginf(ref)
+    if not torch.equal(torch.isneginf(lse), empty) or torch.isnan(lse).any():
+        raise AssertionError(f"{what}: lse -inf at {torch.isneginf(lse).nonzero().tolist()}, "
+                             f"plain version's at {empty.nonzero().tolist()}")
+    return close(lse[~empty], ref[~empty], tol, what) if (~empty).any() else 0.0
+
+
+def check_paged_lse(gen, dev):
+    """paged_attention with ``return_lse`` against the plain version: one
+    partition and several (b = 8 over 40 pages), a context of 0 (out 0,
+    lse -inf, no NaN), and phase 14's rank-local slice at Yi widths (b = 3,
+    12 pages of 32: a full slice, a partial one, an empty one), f32 and
+    bf16; out equal to the call without lse.  Returns max |lse err|."""
+    import torch
+
+    from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    worst = 0.0
+    cases = [  # (b, h, g, d, pages, bs, contexts, what)
+        (2, 8, 2, 64, 3, 32, [5, 70], "one partition"),
+        (8, YI["h"], YI["g"], YI["d"], 40, 16, [1, 640, 17, 300, 0, 639, 630, 2], "split"),
+        (2, 8, 2, 64, 3, 32, [0, 0], "contexts of 0"),
+        (3, YI["h"], YI["g"], YI["d"], 12, 32, [384, 264, 0], "phase 14's slice"),
+    ]
+    for b, h, g, d, per, bs, ctx_list, what in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
+            kp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(dtype)
+            vp = torch.randn(b, per, bs, g, d, generator=gen, device=dev).to(dtype)
+            tables = torch.arange(per, dtype=torch.int32, device=dev)[None].repeat(b, 1)
+            ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+            out, lse = paged_attention(q, kp, vp, tables, ctx, return_lse=True)
+            grid = paged_attention.last_grid
+            ref, ref_lse = paged_attention_ref(q, kp, vp, tables, ctx, return_lse=True)
+            torch.cuda.synchronize()
+            tag = f"paged_attention lse {what} b={b} h={h} g={g} d={d} ctx={ctx_list} {name}"
+            if not torch.equal(out, paged_attention(q, kp, vp, tables, ctx)):
+                raise AssertionError(f"{tag}: out with lse != out without")
+            close(out, ref, TOL[name], tag)
+            for i, c in enumerate(ctx_list):
+                if c == 0 and not (torch.equal(out[i], torch.zeros_like(out[i]))
+                                   and torch.isneginf(lse[i]).all()):
+                    raise AssertionError(f"{tag}: sequence {i} of context 0: out not 0 or "
+                                         f"lse not -inf")
+            worst = max(worst, close_lse(lse, ref_lse, TOL[name], tag))
+            pages, n_part = partitions(b, g, h // g, per, sm_count(dev))
+            log(f"phase 2: {tag}: grid {grid}, {n_part} partition(s) of {pages} pages")
+    log(f"phase 2: paged_attention's lse (f32 [b, h]) against the plain version: max |err| "
+        f"{worst:.3e}")
+    return worst
 
 
 def sm_count(dev):
@@ -1812,6 +1897,260 @@ def phase_examples():
     return counts
 
 
+# ----------------------------------------------------------- phase 14
+def greedy_run(model, params, tokens, n, mesh=None):
+    """Prefill + ``n`` greedy serve steps through ``launch.steps`` (under
+    ``mesh`` when given) -> (each step's logits [b, V] f32 on the host,
+    gathered whole under a mesh; each step's tokens [b]; one decode step's
+    collectives by kind; the state's layout; the prefill's and the median
+    decode step's seconds, host clock ending in a token read)."""
+    import torch
+
+    from repro_torch.launch.shardings import batch_spec, spec_axes
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import sharding
+
+    seen = []
+    for fn in ("prefill", "decode_step"):
+        orig = getattr(model, fn)
+
+        def spy(*a, _orig=orig, **k):
+            logits, st = _orig(*a, **k)
+            seen.append(logits)
+            return logits, st
+        setattr(model, fn, spy)
+    try:
+        prefill, serve = make_prefill_step(model, mesh=mesh), make_serve_step(model, mesh=mesh)
+        t0 = time.perf_counter()
+        tok, state = prefill(params, {"tokens": torch.as_tensor(tokens)})
+        toks = [tok.cpu()]
+        times = {"prefill_s": time.perf_counter() - t0}
+        step, step_s = None, []
+        for _ in range(n):
+            sharding.COUNTER.reset()
+            t0 = time.perf_counter()
+            tok, state = serve(params, state, tok)
+            toks.append(tok.cpu())
+            step_s.append(time.perf_counter() - t0)
+            step = sharding.COUNTER.summary()
+        times["step_s"] = sorted(step_s)[len(step_s) // 2]
+    finally:
+        del model.prefill, model.decode_step
+    logits = []
+    if mesh is None:
+        logits = [lg.float().cpu() for lg in seen]
+    else:
+        cfg = model.cfg
+        with sharding.mesh_context(mesh, fold_model_axis=cfg.fold_model_axis_into_dp):
+            spec = batch_spec(mesh, len(tokens), fold_model=cfg.fold_model_axis_into_dp)
+            for i, lg in enumerate(seen):
+                if lg.shape[-1] < cfg.padded_vocab:
+                    lg = sharding.all_gather(lg, "model", 1)
+                axes = (spec_axes(spec[0]) if spec else ()) if i == 0 else \
+                    state.layout.batch_axes
+                logits.append(sharding.all_gather(lg, axes, 0).float().cpu())
+    return logits, toks, step, getattr(state, "layout", None), times
+
+
+def mesh_counts():
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    return read_counts() | {"paged_attention_lse": paged_attention.launches_lse}
+
+
+def reset_mesh_counts():
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+
+    reset_counts()
+    paged_attention.launches_lse = 0
+
+
+def mesh_runs_spec(seed=14):
+    """Phase 14's runs: (name, config, mesh shape, dtype, prompt batches,
+    logits tolerance).  Yi-9B at its full config over (1, 4), bf16, on
+    MESH_YI_BATCHES; granite-moe-3b-a800m at its full config folded over
+    (2, 2), bf16, with a capacity that drops no (token, expert) pair (the
+    reference ties a MoE group's size to the mesh's DP extent, and with
+    drops a token's output depends on its group: without, the mesh run
+    must give the single-card run's tokens); then each at full width in
+    f32, cut in depth (MESH_F32_LAYERS), where the comparison is tight."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(seed)
+    yi = get_config("yi-9b")
+    granite = get_config("granite-moe-3b-a800m")
+    granite = dataclasses.replace(
+        granite, capacity_factor=granite.num_experts / granite.experts_per_token)
+    yi_batches = [rng.integers(0, yi.vocab_size, bs).astype(np.int32) for bs in MESH_YI_BATCHES]
+    g_batch = [rng.integers(0, granite.vocab_size, MESH_GRANITE_BATCH).astype(np.int32)]
+    yi_f32 = dataclasses.replace(yi, num_layers=MESH_F32_LAYERS["yi-9b"])
+    granite_f32 = dataclasses.replace(granite,
+                                      num_layers=MESH_F32_LAYERS["granite-moe-3b-a800m"])
+    return [
+        ("yi-9b", yi, (1, 4), torch.bfloat16, yi_batches, MESH_LOGIT_TOL["bfloat16"]),
+        ("granite-moe-3b-a800m", granite, (2, 2), torch.bfloat16, g_batch,
+         MESH_LOGIT_TOL["bfloat16"]),
+        (f"yi-9b x{yi_f32.num_layers} f32", yi_f32, (1, 4), torch.float32, yi_batches,
+         MESH_LOGIT_TOL["float32"]),
+        (f"granite-moe-3b-a800m x{granite_f32.num_layers} f32", granite_f32, (2, 2),
+         torch.float32, g_batch, MESH_LOGIT_TOL["float32"]),
+    ]
+
+
+def _mesh_rank(dev, rank, world, work, runs):
+    """One rank of phase 14: each of ``runs`` on its mesh; results to
+    ``work/rank{rank}.pkl``."""
+    import pickle
+
+    import torch
+
+    from repro_torch.launch.mesh import build_params, make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.models.registry import build_model
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": None, "runs": {}}
+    for name, cfg, shape, dtype, batches, _ in runs:
+        mesh = make_mesh(shape, ("data", "model"), dev)
+        out["backend"] = mesh.backend
+        model = build_model(cfg, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = build_params(model, mesh, fold_model=cfg.fold_model_axis_into_dp,
+                              dtype=None if dtype == torch.bfloat16 else dtype)
+        t_build = time.perf_counter() - t0
+        for i, toks in enumerate(batches):
+            reset_mesh_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, tokens, step, layout, times = greedy_run(model, params, toks, MAX_NEW,
+                                                             mesh)
+            torch.cuda.synchronize()
+            out["runs"][f"{name} #{i}"] = dict(
+                seconds=time.perf_counter() - t0, build_s=t_build, counts=mesh_counts(),
+                times=times,
+                logits=logits if rank == 0 else None, tokens=tokens, step=step,
+                layout=layout, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                shard_gb=sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9)
+        del params, model
+        free_model()
+    with open(f"{work}/rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def phase_mesh(card):
+    """Phase 14: serving under a ("data", "model") mesh of MESH_RANKS ranks
+    spawned with ``torch.multiprocessing`` (each its own CUDA context; gloo
+    when they share the one card, nccl when each has a card of its own),
+    the runs of ``mesh_runs_spec``.  Yi-9B over (1, 4), tensor parallel 4:
+    3 x 1024 tokens (48 pages a sequence, 12 a rank: the sequence-parallel
+    branch with rank 2's slice partial and rank 3's empty) and 3 x 96 (19
+    pages: whole on every rank), 8 new tokens each.  granite-moe-3b-a800m
+    folded over (2, 2): experts over 'data', their FSDP shards gathered
+    over 'model' each call, 4 x 128 tokens (4 groups of 128: the
+    expert-parallel branch).  Each run against a single-card run of the
+    same seed, prompts and dtype made first: the first step's logits
+    within the run's tolerance, the tokens equal wherever the single-card
+    run's top-2 margin exceeds it (``repro_torch.parity``); every rank's
+    launches exact (paged_attention with lse once a layer and step where
+    the pages split); one decode step's collectives printed by kind.
+    Returns the per-run records."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import parity
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.registry import build_model
+
+    free_model()
+    t_phase = time.perf_counter()
+    runs = mesh_runs_spec()
+    refs = {}
+    t0 = time.perf_counter()
+    for name, cfg, _, dtype, batches, _ in runs:
+        model = build_model(cfg)
+        params = model.init_params(0)
+        if dtype != torch.bfloat16:
+            params = cast_tree(params, dtype)
+        for i, toks in enumerate(batches):
+            ref = greedy_run(model, params, toks, MAX_NEW)
+            refs[f"{name} #{i}"] = ref[:2] + (ref[4],)
+        del params, model
+        free_model()
+    t_ref = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        spawn(_mesh_rank, MESH_RANKS, f"{work}/init", device="cuda", args=(work, runs),
+              timeout=MESH_TIMEOUT)
+        t_ranks = time.perf_counter() - t0
+        ranks = [pickle.load(open(f"{work}/rank{r}.pkl", "rb")) for r in range(MESH_RANKS)]
+    backend = ranks[0]["backend"]
+    records = {}
+    for name, cfg, shape, dtype, batches, tol in runs:
+        for i in range(len(batches)):
+            run = f"{name} #{i}"
+            ref_logits, ref_tokens, ref_times = refs[run]
+            got = ranks[0]["runs"][run]
+            layout = got["layout"]
+            L = cfg.num_layers
+            want = {"flash_prefill": L, "paged_attention": L * MAX_NEW,
+                    "paged_attention_lse": L * MAX_NEW if layout.seq_parallel else 0,
+                    "kv_pull": 0, "kv_pull_dequant": 0, "ssd_scan": 0}
+            for r, rank in enumerate(ranks):
+                expect_counts(f"phase 14: {run} rank {r}", rank["runs"][run]["counts"], want)
+                if any(not torch.equal(a, b) for a, b in zip(rank["runs"][run]["tokens"],
+                                                              got["tokens"])):
+                    raise AssertionError(f"phase 14: {run}: rank {r}'s tokens differ from "
+                                         f"rank 0's")
+            if cfg.num_experts and not all(got["step"].get(k, {}).get("count")
+                                           for k in ("all-to-all", "all-gather")):
+                raise AssertionError(f"phase 14: {run}: the expert exchange ran no all_to_all "
+                                     f"or all_gather in a decode step: {got['step']}")
+            diff = got["logits"][0] - ref_logits[0]
+            err = float(diff.abs().max())
+            rel = float(diff.norm() / ref_logits[0].norm())
+            if not np.isfinite(err) or not err <= tol:
+                raise AssertionError(f"phase 14: {run}: first-step logits max |err| {err} "
+                                     f"above {tol}")
+            agree = parity.check_greedy_tokens(ref_logits, ref_tokens, got["tokens"], tol,
+                                               vocab=cfg.vocab_size)
+            n_tok = len(ref_tokens) * len(ref_tokens[0])
+            records[run] = dict(
+                seconds=got["seconds"], build_s=got["build_s"], mesh=shape,
+                dtype=str(dtype), seq_parallel=layout.seq_parallel,
+                batch_axes=layout.batch_axes, logits_max_abs_err=err, logits_rel_err=rel,
+                tol=tol, tokens_compared=agree["compared"], tokens=n_tok,
+                first_uncompared=agree["first_uncompared_step"], counts=got["counts"],
+                collectives_per_decode_step=got["step"],
+                peak_gb=[rank["runs"][run]["peak_gb"] for rank in ranks],
+                shard_gb=got["shard_gb"], backend=backend, times=got["times"],
+                single_card_times=ref_times)
+            log(f"phase 14 ({card}; {backend}, {MESH_RANKS} ranks): {run} on mesh "
+                f"{dict(zip(('data', 'model'), shape))} {layout}: {got['seconds']:.2f}s for "
+                f"prefill + {MAX_NEW} steps (prefill {got['times']['prefill_s']:.3f}s, "
+                f"decode step {got['times']['step_s']:.4f}s median; one card "
+                f"{ref_times['prefill_s']:.3f}s and {ref_times['step_s']:.4f}s; params built "
+                f"rank by rank in {got['build_s']:.1f}s); first-step logits max |err| {err:.4g} (limit {tol}), "
+                f"||err||/||ref|| {rel:.3e}; tokens compared {agree['compared']}/{n_tok} "
+                f"(first uncompared step per sequence {agree['first_uncompared_step']}); "
+                f"peak per rank {[round(x, 2) for x in records[run]['peak_gb']]} GB, shard "
+                f"{got['shard_gb']:.2f} GB; launches per rank {got['counts']}")
+            log(f"phase 14: {run}: collectives of one decode step (per rank): {got['step']}")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f}s (single-card references "
+        f"{t_ref:.1f}s, the ranks {t_ranks:.1f}s)")
+    return records
+
+
 # ------------------------------------------------------------ phase 5
 def time_ms(fn, iters=50, warmup=3):
     """Device time of one call: ``iters`` calls captured in one CUDA graph,
@@ -1983,9 +2322,10 @@ def ssd_train_rows(gen, dev):
     return {"forward": fwd, "backward": bwd}
 
 
-def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI):
+def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI, lse=False):
     """paged_attention at ``widths`` (Yi-9B's by default) over ``ctx_list``
-    tokens, bf16."""
+    tokens, bf16; with ``lse`` the call with ``return_lse`` (the call
+    without it timed beside it, ``ms_without_lse``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2009,17 +2349,21 @@ def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI):
     pages, _ = partitions(b, g, h // g, per, sm_count(dev))
     paged_attention.last_grid = None
     row = dict(
-        ms=time_ms(lambda: paged_attention(q, kp, vp, tables, ctx)),
-        call_ms=call_ms(lambda: paged_attention(q, kp, vp, tables, ctx)),
-        plain_ms=call_ms(lambda: paged_attention_ref(q, kp, vp, tables, ctx)),
+        ms=time_ms(lambda: paged_attention(q, kp, vp, tables, ctx, return_lse=lse)),
+        call_ms=call_ms(lambda: paged_attention(q, kp, vp, tables, ctx, return_lse=lse)),
+        plain_ms=call_ms(lambda: paged_attention_ref(q, kp, vp, tables, ctx,
+                                                     return_lse=lse)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qf, kf, vf, attn_mask=mask)),
-        bound=bound_ms(kv_read + 2 * q.numel() * 2 + tables.numel() * 4 + b * 4,
-                       4 * h * d * sum(ctx_list)))
+        bound=bound_ms(kv_read + 2 * q.numel() * 2 + tables.numel() * 4 + b * 4
+                       + (b * h * 4 if lse else 0), 4 * h * d * sum(ctx_list)))
+    if lse:
+        row["ms_without_lse"] = time_ms(lambda: paged_attention(q, kp, vp, tables, ctx))
     grid = paged_attention.last_grid  # as the wrapper launched it in the timed calls
     row["grid"] = list(grid)
     row["blocks"] = grid[0] * grid[1] * grid[2]
-    row["shape"] = (f"{what}: b={b} h={h} g={g} d={d} bs={bs} ctx={ctx_list} bf16; grid "
+    row["shape"] = (f"{what}: b={b} h={h} g={g} d={d} bs={bs} ctx={ctx_list} bf16"
+                    f"{' with lse' if lse else ''}; grid "
                     f"{grid[0]} x {grid[1]} x {grid[2]} partitions of {pages} pages = "
                     f"{row['blocks']} blocks")
     return row
@@ -2129,6 +2473,10 @@ def phase_times(gen, dev):
                              f"{rows['paged_attention']['grid']}: under 96 blocks")
     rows["paged_attention"]["also"] = [paged_time_row(
         gen, dev, 8, LONG_CTX // YI["bs"], [LONG_CTX] * 8, "long context")]
+    # phase 14's rank-local slice: 12 pages of 32 a rank at the 8th step of
+    # 1024-token prompts (a full slice, a partial one, an empty one)
+    rows["paged_attention"]["also"].append(paged_time_row(
+        gen, dev, 3, 12, [384, 264, 0], "yi-9b rank-local slice under TP 4", lse=True))
     # flash_prefill: the longest prompt's prefill attention, one layer
     rows["flash_prefill"] = prefill_time_row(gen, dev, max(PROMPTS), "yi-9b prefill")
     rows["flash_prefill"]["also"] = [prefill_time_row(gen, dev, LONG_PROMPT, "long prompt",
@@ -2219,16 +2567,24 @@ def fmt_ms(x):
 def timing(row):
     """A phase-5 row's numbers under the keys of the kernels line."""
     bms, by = row["bound"]
-    extra = {k: row[k] for k in ("vs_library", "grid", "launch_us") if k in row}
+    extra = {k: row[k] for k in ("vs_library", "grid", "launch_us", "ms_without_lse")
+             if k in row}
     extra["call_ms"] = row["call_ms"]
     return {"ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": row["library_ms"], "shape": row["shape"], **extra}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=["all", "14"], default="all",
+                    help="14: the build, paged_attention's lse checks and phase 14 alone "
+                         "(the mesh over every card of the machine)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2245,6 +2601,14 @@ def main() -> int:
     phase_build()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
+    lse_err = check_paged_lse(gen, dev)
+    if args.phase == "14":
+        log(f"phase 14 records: {json.dumps(phase_mesh(card), default=str)}")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     errs = {
         "paged_attention": check_paged_attention(gen, dev),
         "flash_prefill": check_flash_prefill(gen, dev),
@@ -2252,7 +2616,7 @@ def main() -> int:
         "kv_pull_dequant": check_kv_pull_dequant(gen, dev),
         "ssd_scan": check_ssd_scan(gen, dev),
     }
-    lse_err, bwd_err = check_flash_training(gen, dev)
+    flash_lse_err, bwd_err = check_flash_training(gen, dev)
     ssd_grad_err, ssd_bwd_peak = check_ssd_training(gen, dev)
     log(f"phase 2: every kernel matches its plain version; max |err| at full width "
         f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}; "
@@ -2304,6 +2668,9 @@ def main() -> int:
     t0 = time.perf_counter()
     example_counts = phase_examples()
     log(f"phase 13: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mesh_runs = phase_mesh(card)
+    log(f"phase 14: {time.perf_counter() - t0:.1f}s")
     # each kernel's launches in the new phases' runs, per request where the
     # run served several
     later = {
@@ -2319,6 +2686,8 @@ def main() -> int:
         **{f"phase 12 {arch} launch.train, {SSM_TRAIN_STEPS} steps": c
            for arch, c in ssm_train_counts.items()},
         **{f"phase 13 examples/{name}.py": c for name, c in example_counts.items()},
+        **{f"phase 14 {run} under mesh {r['mesh']}, each of {MESH_RANKS} ranks": r["counts"]
+           for run, r in mesh_runs.items()},
     }
 
     t0 = time.perf_counter()
@@ -2340,6 +2709,10 @@ def main() -> int:
         extra["launches_later_phases"] = {run: c[name] for run, c in later.items()}
         if name == "kv_pull":
             extra["bytes_pulled_llava"] = llava_pulled
+        if name == "paged_attention":
+            extra["lse_max_abs_err"] = lse_err
+            extra["launches_lse_phase_14"] = {run: r["counts"]["paged_attention_lse"]
+                                              for run, r in mesh_runs.items()}
         if name == "ssd_scan":
             tr = row["training"]
             extra["training"] = {
@@ -2356,7 +2729,7 @@ def main() -> int:
             extra["training"] = {
                 "forward_lse": timing(tr["forward_lse"])
                 | {"ms_without_lse": tr["forward_lse"]["ms_without_lse"],
-                   "lse_max_abs_err": lse_err},
+                   "lse_max_abs_err": flash_lse_err},
                 "backward": timing(tr["backward"]) | {"max_rel_err": bwd_err}}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2371,7 +2744,9 @@ def main() -> int:
                                       if "vs_library" in r else "")
                 + (f"; {raw['bound_f32_fma_ms']:.5f} ms at the f32 FMA rate"
                    if "bound_f32_fma_ms" in raw else "")
-                + (f"; us a launch (profiler) {r['launch_us']}" if "launch_us" in r else ""))
+                + (f"; us a launch (profiler) {r['launch_us']}" if "launch_us" in r else "")
+                + (f"; without lse {r['ms_without_lse']:.4f} ms" if "ms_without_lse" in r
+                   else ""))
     tr = rows["flash_prefill"]["training"]
     for what, r in (("forward with lse", tr["forward_lse"]), ("training backward",
                                                              tr["backward"])):
@@ -2399,6 +2774,7 @@ def main() -> int:
         f"yi-9b x{YI_TRAIN_LAYERS} layers step {yi_train['step_s']:.4f} s, "
         f"{yi_train['tokens_per_s']:.0f} tokens/s, peak {yi_train['peak_gb']:.2f} GB")
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
+    log(f"phase 14 records: {json.dumps(mesh_runs, default=str)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

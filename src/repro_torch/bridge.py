@@ -38,12 +38,20 @@ def tensor_from_numpy(a, *, device="cpu", dtype: torch.dtype | None = None) -> t
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None):
+def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None, mesh=None,
+                    mode: str = "serve", fold_model: bool = False):
     """Nested dict of numpy arrays -> nested dict of tensors (optionally
-    cast to ``dtype``)."""
+    cast to ``dtype``); with a ``mesh`` (``launch.mesh.Mesh``), this rank's
+    shards of them (``launch.shardings.shard_params`` in ``mode``)."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device=device, dtype=dtype) for k, v in tree.items()}
-    return tensor_from_numpy(tree, device=device, dtype=dtype)
+        out = {k: params_from_jax(v, device=device, dtype=dtype) for k, v in tree.items()}
+    else:
+        out = tensor_from_numpy(tree, device=device, dtype=dtype)
+    if mesh is None:
+        return out
+    from repro_torch.launch.shardings import shard_params
+
+    return shard_params(out, mesh, mode=mode, fold_model=fold_model)
 
 
 def opt_state_from_jax(opt_state, *, device="cpu"):
@@ -67,7 +75,7 @@ def state_from_jax(state, *, device="cpu", dtype: torch.dtype | None = None):
         return tensor_from_numpy(a, device=device,
                                  dtype=dtype if name in _KV_FIELDS else None)
     cls = EncDecState if hasattr(state, "cross_k") else DecodeState
-    return cls(**{f.name: conv(f.name) for f in dataclasses.fields(cls)})
+    return cls(**{f.name: conv(f.name) for f in dataclasses.fields(cls) if f.name != "layout"})
 
 
 def state_to_numpy(state) -> dict[str, np.ndarray | None]:
@@ -75,7 +83,7 @@ def state_to_numpy(state) -> dict[str, np.ndarray | None]:
     arrays (f32 for bf16 tensors), the keyword arguments of the JAX state
     of the same kind."""
     out = {}
-    for f in (f.name for f in dataclasses.fields(state)):
+    for f in (f.name for f in dataclasses.fields(state) if f.name != "layout"):
         t = getattr(state, f)
         if t is not None and t.dtype == torch.bfloat16:
             t = t.float()

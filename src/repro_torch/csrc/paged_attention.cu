@@ -51,6 +51,15 @@
 //   arrive combining through an atomic counter, keeps the kernels free of
 //   cross-block synchronisation and of counters that must start at zero,
 //   and costs a few microseconds that the timings include.
+// - Optionally (lse != nullptr) each head's log-sum-exp of its scaled
+//   scores, f32 [b, h], natural log: written by the combine kernel, or by
+//   the split kernel itself when there is one partition.  A sequence
+//   parallel decode across cards combines its slices' outputs with it
+//   (models/attention.py).  One float a (sequence, head) beside the d of
+//   the output: at Yi-9B b = 3, 384 bytes a launch.
+// - A context of 0 (a rank whose slice holds no key of the sequence) is a
+//   contract: out = 0 and lse = -inf, no NaN.  No key is loaded, every
+//   stream keeps m = -1e30, l = 0, acc = 0, and the merge gives 0 / 1e-30.
 // The merges sum in another order than a single pass; the results stay
 // within the f32 (2e-4) and bf16 (2e-2) tolerances of the plain version.
 // The wrapper models this design (heads a block, key batches, the
@@ -65,6 +74,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxHeads = 8;     // query heads per block (ops.py::HEADS_PER_BLOCK)
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWritesLse = 1;    // the interface takes an lse output (ops.py::DESIGN)
 
 constexpr int kStages = 3;       // key batches a lane has in flight, in shared memory
 constexpr int kMaxPartPages = 1024;  // ops.py::MAX_PART_PAGES (the table's shared copy)
@@ -128,6 +139,11 @@ __host__ __device__ constexpr int ring_bytes(int nb) {
   return kStages * nb * 2 * Vec8<T>::kPieces * kThreads * 16;
 }
 
+// natural-log lse from the log2-domain max and sum; -inf for no key
+__device__ __forceinline__ float lse_of(float m_log2, float l) {
+  return l > 0.f ? (m_log2 + log2f(l)) * kLn2 : __int_as_float(0xff800000u);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -141,6 +157,7 @@ paged_attention_split_kernel(const T* __restrict__ q,        // [b, h, d]
                              const int32_t* __restrict__ block_tables,  // [b, per_seq]
                              const int32_t* __restrict__ context_lens,  // [b]
                              T* __restrict__ out,            // [b, h, d]
+                             float* __restrict__ lse,        // [b, h] or null
                              float* __restrict__ part_ml,    // [b, h, n_part, 2]
                              float* __restrict__ part_acc,   // [b, h, n_part, d]
                              int h, int g, int per_seq, int bs, int part_pages, int n_part,
@@ -319,6 +336,7 @@ paged_attention_split_kernel(const T* __restrict__ q,        // [b, h, d]
     const int64_t head_row = static_cast<int64_t>(seq) * h + h0 + hh;
     if (n_part == 1) {
       store(out + head_row * D + jj, a / fmaxf(lt_s[hh], 1e-30f));
+      if (lse && jj == 0) lse[head_row] = lse_of(mt_s[hh], lt_s[hh]);
     } else {
       const int64_t p = head_row * n_part + part;
       part_acc[p * D + jj] = a;
@@ -336,7 +354,8 @@ template <typename T>
 __global__ void paged_attention_combine_kernel(const float* __restrict__ part_ml,
                                                const float* __restrict__ part_acc,
                                                const int32_t* __restrict__ context_lens,
-                                               T* __restrict__ out, int h, int d, int n_part,
+                                               T* __restrict__ out, float* __restrict__ lse,
+                                               int h, int d, int n_part,
                                                int part_tokens) {
   const int head = blockIdx.x, seq = blockIdx.y, jj = threadIdx.x;
   const int ctx = context_lens[seq];
@@ -353,12 +372,13 @@ __global__ void paged_attention_combine_kernel(const float* __restrict__ part_ml
     a = fmaf(acc[static_cast<int64_t>(p) * d + jj], w, a);
   }
   store(out + head_row * d + jj, a / fmaxf(tot, 1e-30f));
+  if (lse && jj == 0) lse[head_row] = lse_of(mx, tot);
 }
 
 template <typename T, int L>
 int launch_split(const void* q, const void* k, const void* v, const void* tables,
-                 const void* ctx, void* out, void* part_ml, void* part_acc, int b, int h,
-                 int g, int per_seq, int bs, int part_pages, int n_part, float scale,
+                 const void* ctx, void* out, void* lse, void* part_ml, void* part_acc, int b,
+                 int h, int g, int per_seq, int bs, int part_pages, int n_part, float scale,
                  int* grid_out, cudaStream_t stream) {
   const int chunks = (h / g + kMaxHeads - 1) / kMaxHeads;
   const size_t smem = ring_bytes<T>(kKeyBatch<T>) + sizeof(int32_t) * part_pages;
@@ -370,8 +390,9 @@ int launch_split(const void* q, const void* k, const void* v, const void* tables
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx),
-      static_cast<T*>(out), static_cast<float*>(part_ml), static_cast<float*>(part_acc), h,
-      g, per_seq, bs, part_pages, n_part, scale * 1.4426950408889634f);
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<float*>(part_ml),
+      static_cast<float*>(part_acc), h, g, per_seq, bs, part_pages, n_part,
+      scale * 1.4426950408889634f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   grid_out[0] = grid.x;
@@ -380,20 +401,20 @@ int launch_split(const void* q, const void* k, const void* v, const void* tables
   if (n_part == 1) return 0;
   paged_attention_combine_kernel<T><<<dim3(h, b), 8 * L, 0, stream>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<const int32_t*>(ctx), static_cast<T*>(out), h, 8 * L, n_part,
-      part_pages * bs);
+      static_cast<const int32_t*>(ctx), static_cast<T*>(out), static_cast<float*>(lse), h,
+      8 * L, n_part, part_pages * bs);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int d, const void* q, const void* k, const void* v, const void* tables,
-             const void* ctx, void* out, void* part_ml, void* part_acc, int b, int h, int g,
-             int per_seq, int bs, int part_pages, int n_part, float scale, int* grid_out,
+             const void* ctx, void* out, void* lse, void* part_ml, void* part_acc, int b, int h,
+             int g, int per_seq, int bs, int part_pages, int n_part, float scale, int* grid_out,
              cudaStream_t s) {
-#define PA_CASE(D)                                                                        \
-  case D:                                                                                 \
-    return launch_split<T, D / 8>(q, k, v, tables, ctx, out, part_ml, part_acc, b, h, g, \
-                                  per_seq, bs, part_pages, n_part, scale, grid_out, s);
+#define PA_CASE(D)                                                                       \
+  case D:                                                                                \
+    return launch_split<T, D / 8>(q, k, v, tables, ctx, out, lse, part_ml, part_acc, b, h, \
+                                  g, per_seq, bs, part_pages, n_part, scale, grid_out, s);
   switch (d) {
     PA_CASE(8)
     PA_CASE(16)
@@ -410,23 +431,25 @@ int dispatch(int d, const void* q, const void* k, const void* v, const void* tab
 // The design the wrapper models (kernels/paged_attention/ops.py checks it
 // against its own constants before the first launch): threads a block,
 // query heads a block, keys a stream loads at once in f32 and in bf16,
-// most pages a partition.  Returns how many values it wrote.
+// most pages a partition, and 1 for the lse output the interface takes.
+// Returns how many values it wrote.
 extern "C" int paged_attention_design(int* out, int n) {
   const int v[] = {kThreads, kMaxHeads, kKeyBatch<float>, kKeyBatch<__nv_bfloat16>,
-                   kMaxPartPages};
+                   kMaxPartPages, kWritesLse};
   const int m = static_cast<int>(sizeof(v) / sizeof(v[0]));
   for (int i = 0; i < m && i < n; ++i) out[i] = v[i];
   return m;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it); d in
-// {8, 16, 32, 64, 128}.  part_ml [b, h, n_part, 2] and part_acc
+// {8, 16, 32, 64, 128}.  lse [b, h] f32 is written when not null.
+// part_ml [b, h, n_part, 2] and part_acc
 // [b, h, n_part, d] (f32) are scratch, unused when n_part == 1.  The grid
 // the split kernel launched is written to grid_out[3].
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages, const void* block_tables,
-                                      const void* context_lens, void* out, void* part_ml,
-                                      void* part_acc, int b, int h, int g, int d,
+                                      const void* context_lens, void* out, void* lse,
+                                      void* part_ml, void* part_acc, int b, int h, int g, int d,
                                       int per_seq, int bs, int part_pages, int n_part,
                                       float scale, int dtype, int* grid_out, void* stream) {
   if (b <= 0) return 0;
@@ -436,12 +459,12 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(d, q, k_pages, v_pages, block_tables, context_lens, out, part_ml,
-                           part_acc, b, h, g, per_seq, bs, part_pages, n_part, scale,
+    return dispatch<float>(d, q, k_pages, v_pages, block_tables, context_lens, out, lse,
+                           part_ml, part_acc, b, h, g, per_seq, bs, part_pages, n_part, scale,
                            grid_out, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(d, q, k_pages, v_pages, block_tables, context_lens, out,
-                                   part_ml, part_acc, b, h, g, per_seq, bs, part_pages,
+                                   lse, part_ml, part_acc, b, h, g, per_seq, bs, part_pages,
                                    n_part, scale, grid_out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

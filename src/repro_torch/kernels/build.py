@@ -34,8 +34,8 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points: name -> argtypes (every entry returns a cudaError_t as int)
 SIGNATURES = {
-    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, ctypes.POINTER(_I), _P],
+    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, ctypes.POINTER(_I), _P],
     "paged_attention_design": [ctypes.POINTER(_I), _I],
     "flash_prefill_design": [ctypes.POINTER(_I), _I],
     "flash_prefill_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,

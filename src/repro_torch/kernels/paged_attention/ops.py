@@ -1,7 +1,10 @@
 """Paged decode attention: the CUDA kernel on CUDA tensors
 (``csrc/paged_attention.cu``, split over the context: one block per
 kv-head, sequence and partition of pages, then a combine), the plain
-version on CPU tensors."""
+version on CPU tensors.  ``return_lse`` adds each head's log-sum-exp of
+its scaled scores (f32 [b, h], natural log; -inf and a zero output for a
+context of 0), which a sequence-parallel decode combines across ranks
+with (``models/attention.py``)."""
 from __future__ import annotations
 
 import ctypes
@@ -22,9 +25,11 @@ THREADS = 128                # per block; 128 / (d / 8) streams of lanes per blo
 HEADS_PER_BLOCK = 8          # query heads sharing a block's K/V loads
 KEY_BATCH = {torch.float32: 2, torch.bfloat16: 4}  # keys a stream loads at once
 MAX_PART_PAGES = 1024        # pages per partition (the kernel copies their table entries)
+WRITES_LSE = 1               # the launch takes an lse output
 DESIGN = {"threads": THREADS, "heads_per_block": HEADS_PER_BLOCK,
           "key_batch_f32": KEY_BATCH[torch.float32],
-          "key_batch_bf16": KEY_BATCH[torch.bfloat16], "max_part_pages": MAX_PART_PAGES}
+          "key_batch_bf16": KEY_BATCH[torch.bfloat16], "max_part_pages": MAX_PART_PAGES,
+          "writes_lse": WRITES_LSE}
 BLOCKS_PER_SM = 4            # the grid the partition size aims at
 
 
@@ -64,14 +69,17 @@ def _validate(q, k_pages, v_pages, block_tables, context_lens):
         raise TypeError("paged_attention: block_tables and context_lens must be int32")
 
 
-def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
+                    return_lse: bool = False):
     """q [b, h, d]; k/v pages [b, per_seq, bs, g, d]; block_tables
     [b, per_seq] int32 (within-sequence page ids); context_lens [b] int32,
-    counting the current token -> [b, h, d] in q.dtype."""
+    counting the current token -> [b, h, d] in q.dtype, and with
+    ``return_lse`` (out, lse [b, h] f32)."""
     _validate(q, k_pages, v_pages, block_tables, context_lens)
     if not build.on_cuda("paged_attention", q, k_pages, v_pages, block_tables,
                          context_lens):
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens)
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
+                                   return_lse=return_lse)
     tensors = (q, k_pages, v_pages, block_tables, context_lens)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: inputs must be contiguous")
@@ -85,6 +93,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     build.check_design("paged_attention", DESIGN, lib)
     pages, n_part = partitions(b, g, h // g, per_seq, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     ml = acc = None
     if n_part > 1:  # the partials: (m, l) [b, h, n_part, 2], then acc [b, h, n_part, d]
         scratch = torch.empty(b * h * n_part * (2 + d), dtype=torch.float32, device=q.device)
@@ -93,13 +102,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     grid = (ctypes.c_int * 3)()
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), ml, acc, b, h, g, d, per_seq, bs, pages,
+        context_lens.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None, ml,
+        acc, b, h, g, d, per_seq, bs, pages,
         n_part, float(d) ** -0.5, _DTYPES[q.dtype], grid, build.stream_ptr(q.device))
     build.check(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.launches_lse += int(return_lse)
     paged_attention.last_grid = tuple(grid)
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention.launches = 0
+paged_attention.launches_lse = 0  # of those, the launches that wrote lse
 paged_attention.last_grid = None  # the split kernel's grid at the last launch, as launched

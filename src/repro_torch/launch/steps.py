@@ -12,15 +12,26 @@ tokens; the serve step takes the model's own state (``DecodeState``, or
 ``EncDecState`` for whisper).  ``input_specs`` gives meta tensors where
 the reference gives ``ShapeDtypeStruct``s: shapes and dtypes, no
 storage.
+
+Under a device mesh (``make_prefill_step(model, mesh=...)``, params from
+``launch.shardings.shard_params``) the prefill and serve steps take and
+return the WHOLE batch of tokens, as the reference's jitted steps do with
+their shardings: each rank computes its rows (``batch_spec``'s split for
+the prefill, the decode state's for a serve step), picks greedily over
+vocab-sharded logits, and the ranks' tokens are gathered.  The state is
+this rank's shard.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch.shardings import batch_spec, spec_axes
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import leaves, unflatten
@@ -137,24 +148,59 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = True,
 
 
 def _greedy(model, logits) -> torch.Tensor:
-    return torch.argmax(logits[:, : model.cfg.vocab_size].float(), dim=-1).to(torch.int32)
+    """The first index of the highest logit among the real vocabulary.
+    Over vocab-sharded logits (this rank's columns under a mesh): each
+    rank's max and first argmax, then an all_gather of the (value, global
+    index) pairs over 'model' and the first of the highest, so that ties
+    go to the lowest index as ``torch.argmax`` breaks them on the row."""
+    vocab, n = model.cfg.vocab_size, logits.shape[-1]
+    if n == model.cfg.padded_vocab:
+        return torch.argmax(logits[:, :vocab].float(), dim=-1).to(torch.int32)
+    lo = sharding.axis_index("model") * n
+    cols = torch.arange(lo, lo + n, device=logits.device)
+    x = logits.float().masked_fill(cols >= vocab, float("-inf"))
+    idx = torch.argmax(x, dim=-1, keepdim=True)
+    vals = sharding.all_gather(torch.gather(x, 1, idx), "model", 1)
+    idxs = sharding.all_gather(idx + lo, "model", 1)
+    return torch.gather(idxs, 1, torch.argmax(vals, dim=1, keepdim=True))[:, 0].to(torch.int32)
 
 
-def make_prefill_step(model):
+def _in_mesh(mesh, model):
+    """The mesh context of a step's call (none without a mesh: the
+    caller's own, if any)."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sharding.mesh_context(mesh, fold_model_axis=model.cfg.fold_model_axis_into_dp)
+
+
+def make_prefill_step(model, *, mesh=None):
     """(params, batch) -> (first token [b] int32, the model's decode state)."""
     def prefill_step(params, batch):
-        logits, state = model.prefill(params, batch)
-        return _greedy(model, logits), state
+        with _in_mesh(mesh, model):
+            if sharding.get_mesh() is None:
+                logits, state = model.prefill(params, batch)
+                return _greedy(model, logits), state
+            b = len(batch["tokens"])
+            spec = batch_spec(sharding.get_mesh(), b, fold_model=sharding.tp_folded())
+            axes = spec_axes(spec[0]) if spec else ()
+            mine = {k: sharding.take_shard(torch.as_tensor(v), axes, 0)
+                    for k, v in batch.items()}
+            logits, state = model.prefill(params, mine, batch_axes=axes)
+            return sharding.all_gather(_greedy(model, logits), axes, 0), state
 
     return prefill_step
 
 
-def make_serve_step(model):
+def make_serve_step(model, *, mesh=None):
     """One decode iteration: (params, state, tokens [b]) -> (next token
     [b] int32 by greedy choice, updated decode state)."""
     def serve_step(params, state, tokens):
-        logits, state = model.decode_step(params, state, tokens)
-        return _greedy(model, logits), state
+        with _in_mesh(mesh, model):
+            layout = getattr(state, "layout", None)
+            axes = layout.batch_axes if layout is not None else ()
+            tokens = sharding.take_shard(torch.as_tensor(tokens), axes, 0)
+            logits, state = model.decode_step(params, state, tokens)
+            return sharding.all_gather(_greedy(model, logits), axes, 0), state
 
     return serve_step
 

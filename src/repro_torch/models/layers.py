@@ -2,17 +2,28 @@
 ``src/repro/models/layers.py``.  Params are nested dicts of tensors with
 the reference's layout: dense ``{"w": [in, out], "b"?}``, norms
 ``{"scale"}``, embeddings ``{"table": [vocab, d]}``; bf16 storage, f32
-where numerics demand."""
+where numerics demand.
+
+Under a mesh (``models.sharding``) the params are this rank's shards
+(``launch.shardings.shard_params``): a column-parallel ``dense`` gives the
+rank's columns as it is; ``row_dense`` contracts the rank's rows of the in
+dim and sums the partial products over 'model' (in f32, cast back once);
+``swiglu`` runs on the local d_ff; ``embed`` looks up a vocab-sharded
+table (a masked local lookup, then a sum over 'model').  Whether a weight
+is sharded is read off its local shape against the full dim the caller
+names.  Without a mesh every one is the single-device function."""
 from __future__ import annotations
 
 import itertools
 
 import torch
 
+from repro_torch.models import sharding
+
 PARAM_DTYPE = torch.bfloat16
 
-__all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "rmsnorm", "layernorm", "swiglu",
-           "gelu_mlp", "embed"]
+__all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "row_dense", "rmsnorm", "layernorm",
+           "swiglu", "gelu_mlp", "embed"]
 
 
 def normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
@@ -49,6 +60,24 @@ def dense(p, x):
     return y
 
 
+def row_dense(p, x, d_in: int):
+    """Row-parallel ``x @ w (+ b)`` over the full in dim ``d_in``: when w
+    holds only this rank's rows (its in dim shorter than ``d_in``), x's
+    matching columns (x itself when it is already local) contract them
+    and the partial products are summed over 'model' in f32, cast back
+    once, the bias added after the sum."""
+    w = p["w"]
+    if w.shape[-2] == d_in:
+        return dense(p, x)
+    if x.shape[-1] == d_in:
+        x = sharding.take_shard(x, "model", -1)
+    y = dense({"w": w}, x)
+    y = sharding.all_reduce(y.float(), "model").to(y.dtype)
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def rmsnorm(p, x, eps: float = 1e-5):
     h = x.float()
     h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
@@ -64,16 +93,30 @@ def layernorm(p, x, eps: float = 1e-5):
     return (h * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
-def swiglu(p, x):
+def swiglu(p, x, d_ff: int | None = None):
+    """``down(silu(gate(x)) * up(x))``; with ``d_ff`` (the full hidden
+    width) the hidden may be this rank's columns and ``down`` row-parallel."""
     h = torch.nn.functional.silu(dense(p["gate"], x)) * dense(p["up"], x)
-    return dense(p["down"], h)
+    return dense(p["down"], h) if d_ff is None else row_dense(p["down"], h, d_ff)
 
 
-def gelu_mlp(p, x):
+def gelu_mlp(p, x, d_ff: int | None = None):
     """``down(gelu(up(x)))`` with the tanh form of GELU, which is
     ``jax.nn.gelu``'s default (the erf form differs by up to about 1e-3)."""
-    return dense(p["down"], torch.nn.functional.gelu(dense(p["up"], x), approximate="tanh"))
+    h = torch.nn.functional.gelu(dense(p["up"], x), approximate="tanh")
+    return dense(p["down"], h) if d_ff is None else row_dense(p["down"], h, d_ff)
 
 
-def embed(p, tokens):
-    return p["table"][tokens]
+def embed(p, tokens, vocab: int | None = None):
+    """Rows of ``p["table"]`` for ``tokens``; when the table holds only this
+    rank's rows of ``vocab`` (vocab-sharded over 'model'), each rank looks
+    up the tokens it holds (zeros for the others) and the ranks' rows sum
+    over 'model' (exact: one of them is not zero)."""
+    table = p["table"]
+    if vocab is None or table.shape[0] == vocab:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - sharding.axis_index("model") * n
+    inside = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)] * inside[..., None].to(table.dtype)
+    return sharding.all_reduce(x.float(), "model").to(table.dtype)

@@ -13,8 +13,20 @@ here.  A token's output depends on the other tokens of its group: which
 pairs are dropped follows from capacity and order.
 
 Experts are padded to ``cfg.padded_experts``; padded experts get -inf
-router logits and are never chosen.  The ``shard_map`` expert-parallel
-branch of the reference (``moe.py:62-129``) waits for the sharding slice.
+router logits and are never chosen.
+
+Under a mesh (``models.sharding``) the group size follows the reference's
+rule over the GLOBAL token count (the group count divisible by the DP
+extent where it can be), and ``_expert_ffn`` is the reference's
+expert-parallel ``shard_map`` branch (``moe.py:62-129``) under the same
+conditions: each rank takes its groups' buffers (its slice over the DP
+axes), one ``all_to_all`` over 'data' sends each expert's rows to the rank
+that holds it, the rank's experts run, one ``all_to_all`` brings the rows
+back; an f32 sum over 'model' when the FFN is tensor parallel
+(``ff_sharded``); the expert weights gathered over 'model' when they are
+FSDP there (the folded DP+EP deployment) or a TP shard too narrow to pay.
+Otherwise each rank runs its own experts on its tokens' buffers and the
+results are gathered over 'data'.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.layers import dense_init, swiglu
 
 __all__ = ["Routing", "capacity", "group_size", "moe_route", "moe_apply", "moe_init"]
@@ -32,14 +45,15 @@ def capacity(tokens_per_group: int, k: int, e: int, cf: float) -> int:
     return max(1, -(-int(tokens_per_group * k * cf) // e))
 
 
-def group_size(n: int) -> int:
+def group_size(n: int, dp: int = 1, preferred: int = 512) -> int:
     """Tokens a group: the first of the reference's candidates that divides
-    the ``n`` tokens (one device, so the group count need divide nothing
-    else), else all of them in one group."""
-    for cand in (512, 256, 128, 64, 32):
-        if cand <= n and n % cand == 0:
+    the ``n`` tokens with a group count divisible by the ``dp`` ranks of
+    the data-parallel axes, else (degenerate small inputs) all of them in
+    one group, or n / dp each when dp divides n."""
+    for cand in (preferred, 512, 256, 128, 64, 32):
+        if cand <= n and n % cand == 0 and (n // cand) % dp == 0:
             return cand
-    return n
+    return n if n % dp else n // dp
 
 
 @dataclasses.dataclass
@@ -72,43 +86,105 @@ def moe_route(p, xg: torch.Tensor, cfg, cap: int) -> Routing:
     return Routing(probs, top_p, top_idx, keep, slot, onehot, cap)
 
 
-def _expert_ffn(buf, p, g, e_pad, cap, d):
-    """Per-expert SwiGLU over the buffers: [g, E*C, d] -> [g, E*C, d]."""
-    xe = buf.reshape(g, e_pad, cap, d).transpose(0, 1).reshape(e_pad, g * cap, d)
-    h = F.silu(torch.bmm(xe, p["gate"])) * torch.bmm(xe, p["up"])
-    ye = torch.bmm(h, p["down"])
-    return ye.reshape(e_pad, g, cap, d).transpose(0, 1).reshape(g, e_pad * cap, d)
+def _ffn_local(xe, gate, up, down):
+    """Per-expert SwiGLU over buffers.  xe: [E, n, d]."""
+    return torch.bmm(F.silu(torch.bmm(xe, gate)) * torch.bmm(xe, up), down)
 
 
-def moe_apply(p, x: torch.Tensor, cfg):
-    """x: [b, s, d] -> (out [b, s, d], aux load-balance loss, f32 scalar)."""
+def _expert_weights(p, ff: int):
+    """This rank's expert weights with the d_ff its products contract, and
+    whether their results need a sum over 'model': the reference's
+    ``ff_sharded`` (TP over 'model' with at least 128 columns a rank) keeps
+    the local columns; a d_ff split any other way (FSDP over 'model' in the
+    folded deployment, or a TP shard too narrow to pay) is gathered."""
+    gate, up, down = p["gate"], p["up"], p["down"]
+    tp = sharding.tp_size()
+    ff_sharded = tp > 1 and ff % tp == 0 and ff // tp >= 128
+    if gate.shape[-1] < ff and not ff_sharded:
+        gate = sharding.all_gather(gate, "model", -1)
+        up = sharding.all_gather(up, "model", -1)
+        down = sharding.all_gather(down, "model", -2)
+    return gate, up, down, gate.shape[-1] < ff
+
+
+def _expert_ffn(buf, p, g, e_pad, cap, d, ff, batch_axes=()):
+    """Per-expert SwiGLU over the buffers of this rank's groups: [g_l, E*C,
+    d] -> the same.  ``g`` counts the groups of the whole batch, split over
+    ``batch_axes`` (a prefix of the DP axes) into this rank's ``g_l``."""
+    g_l = buf.shape[0]
+    gate, up, down, psum = _expert_weights(p, ff)
+    dsize = sharding.axis_size("data")
+    if sharding.get_mesh() is None or g % sharding.dp_size() or e_pad % dsize or dsize == 1:
+        # each rank's experts (E over 'data' where it divides) on its buffers;
+        # the ranks along 'data' hold the same buffers here: ``group_size``
+        # leaves g a multiple of the DP extent or 1, and one group is whole
+        e_loc = gate.shape[0]
+        lo = sharding.axis_index("data") * e_loc if e_loc < e_pad else 0
+        xe = buf.reshape(g_l, e_pad, cap, d).transpose(0, 1)[lo:lo + e_loc]
+        ye = _ffn_local(xe.reshape(e_loc, g_l * cap, d), gate, up, down)
+        if psum:
+            ye = sharding.all_reduce(ye.float(), "model").to(buf.dtype)
+        if e_loc < e_pad:
+            ye = sharding.all_gather(ye, "data", 0)
+        return ye.reshape(e_pad, g_l, cap, d).transpose(0, 1).reshape(g_l, e_pad * cap, d)
+
+    # expert parallel: the rank's groups over every DP axis (its batch rows
+    # cover the DP axes outside batch_axes too: take its part of them)
+    rest = tuple(a for a in sharding.dp_axes() if a not in batch_axes)
+    mine = sharding.take_shard(buf, rest, 0)
+    e_loc = e_pad // dsize
+    y = sharding.all_to_all(mine, "data", split_dim=1, concat_dim=0)
+    rows = y.shape[0]
+    y = y.reshape(rows, e_loc, cap, d).transpose(0, 1).reshape(e_loc, rows * cap, d)
+    out = _ffn_local(y, gate, up, down)
+    if psum:  # down-proj contracted a TP shard of ff: combine
+        out = sharding.all_reduce(out.float(), "model").to(buf.dtype)
+    out = out.reshape(e_loc, rows, cap, d).transpose(0, 1).reshape(rows, e_loc * cap, d)
+    out = sharding.all_to_all(out, "data", split_dim=0, concat_dim=1)
+    return sharding.all_gather(out, rest, 0)
+
+
+def moe_apply(p, x: torch.Tensor, cfg, *, group_size_pref: int = 512, batch_axes=()):
+    """x: [b, s, d] -> (out [b, s, d], aux load-balance loss, f32 scalar).
+    Under a mesh x holds this rank's batch rows, split over ``batch_axes``
+    (a prefix of the DP axes; none: every rank holds the whole batch)."""
     b, s, d = x.shape
     e_pad, e, k = cfg.padded_experts, cfg.num_experts, cfg.experts_per_token
-    gs = group_size(b * s)
-    g = b * s // gs
-    xg = x.reshape(g, gs, d)
+    split = sharding.axis_size(batch_axes)
+    n = b * s * split                    # tokens of the whole batch
+    gs = group_size(n, sharding.dp_size(), group_size_pref)
+    g = n // gs
+    spread = ()
+    if split > 1 and g % split:          # a group spans ranks: gather its rows
+        spread, x = batch_axes, sharding.all_gather(x, batch_axes, 0)
+        b, split, batch_axes = x.shape[0], 1, ()
+    xg = x.reshape(-1, gs, d)
+    g_l = xg.shape[0]
     r = moe_route(p, xg, cfg, capacity(gs, k, e, cfg.capacity_factor))
 
     # dispatch: every kept pair into its own buffer row
     contrib = torch.where(r.keep[..., None], xg[:, :, None, :], 0).to(x.dtype)
-    rows = r.slot + (torch.arange(g, device=x.device) * (e_pad * r.cap))[:, None, None]
-    buf = torch.zeros((g * e_pad * r.cap, d), dtype=x.dtype, device=x.device)
+    rows = r.slot + (torch.arange(g_l, device=x.device) * (e_pad * r.cap))[:, None, None]
+    buf = torch.zeros((g_l * e_pad * r.cap, d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, rows.reshape(-1), contrib.reshape(-1, d))
-    ye = _expert_ffn(buf.reshape(g, e_pad * r.cap, d), p, g, e_pad, r.cap, d)
+    ye = _expert_ffn(buf.reshape(g_l, e_pad * r.cap, d), p, g, e_pad, r.cap, d, cfg.d_ff,
+                     batch_axes)
 
     # combine: gather each pair's row back, weighted sum over k in f32
-    gathered = torch.gather(ye, 1, r.slot.reshape(g, gs * k, 1).expand(g, gs * k, d))
-    gathered = gathered.reshape(g, gs, k, d).float()
+    gathered = torch.gather(ye, 1, r.slot.reshape(g_l, gs * k, 1).expand(g_l, gs * k, d))
+    gathered = gathered.reshape(g_l, gs, k, d).float()
     w = (r.top_p * r.keep).float()
     out = torch.einsum("gsk,gskd->gsd", w, gathered).reshape(b, s, d).to(x.dtype)
     if cfg.moe_shared_expert:
-        out = out + swiglu(p["shared"], x)
+        out = out + swiglu(p["shared"], x, cfg.d_ff)
 
-    # Switch-style load-balancing loss
+    # Switch-style load-balancing loss, a mean over every group of the batch
     me = torch.mean(r.onehot.sum(2).float(), dim=1)  # routed fraction per expert
     ce = torch.mean(r.probs, dim=1)
     aux = (e / max(k, 1)) * torch.mean(torch.sum(me * ce, dim=-1))
-    return out, aux
+    if split > 1:
+        aux = sharding.all_reduce(aux, batch_axes) / split
+    return sharding.take_shard(out, spread, 0), aux
 
 
 def moe_init(cfg, gen: torch.Generator, *, lead: tuple = (), device=None) -> dict:

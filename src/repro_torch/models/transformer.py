@@ -27,6 +27,24 @@ Decode steps update the state's KV pages and ring buffers IN PLACE (the
 new token is written into the current page or ring slot of every layer)
 and return a state that shares them; the reference returns fresh arrays
 instead.  SSM states are replaced, not updated.
+
+Under a device mesh (``models.sharding``; params from
+``launch.shardings.shard_params``) the dense and MoE families compute on
+this rank's shards, the collectives the reference's partitioner inserts
+written out: heads over 'model' by the GQA policy (k and v gathered after
+their column-parallel projection when the kv groups do not divide TP),
+row-parallel ``o`` and ``down`` summed over 'model', a vocab-sharded
+embedding and lm head (logits are this rank's vocab columns), the MoE
+expert exchange (``models.moe``).  ``prefill`` takes the mesh axes its
+batch rows are split over (``batch_axes``) and lays its KV, computed with
+the rank's kv groups or batch rows, into the decode state's layout
+(``launch.shardings.decode_state_sharding``: the pages' per_seq over
+'model' when it divides, else whole) with one all_to_all over 'model'
+(an all_gather when the pages stay whole); the state's ``layout`` says
+which, and the decode step runs the sequence-parallel branch of
+``paged_decode_with_write`` on it.  The SSM, hybrid and sliding-window
+families and image prompts refuse a 'model' axis of more than one rank,
+and ``models.whisper`` any mesh (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -36,12 +54,14 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import KVPages, paged_decode_with_write, rope
+from repro_torch.models import sharding
+from repro_torch.models.attention import KVPages, identity_slice, paged_decode_with_write, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
-    PARAM_DTYPE, dense, dense_init, gelu_mlp, normal_, rmsnorm, swiglu)
+    PARAM_DTYPE, dense, dense_init, embed, gelu_mlp, normal_, rmsnorm, row_dense, swiglu)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.sharding import MeshLayout
 from repro_torch.models.ssm import ssm_prefill, ssm_state_shapes, ssm_step
 
 __all__ = ["DecoderLM", "DecodeState", "paged_kv", "sharded_nll", "stack_states"]
@@ -64,6 +84,8 @@ class DecodeState:
     # SSM state
     ssd_state: torch.Tensor | None = None      # [L, b, nh, hd, ns] f32
     conv_state: torch.Tensor | None = None     # [L, b, k-1, c]
+    # under a mesh: how the tensors above are split (None: whole)
+    layout: MeshLayout | None = None
 
 
 def stack_states(states) -> DecodeState:
@@ -74,7 +96,7 @@ def stack_states(states) -> DecodeState:
     out = {}
     for f in dataclasses.fields(DecodeState):
         vals = [getattr(st, f.name) for st in states]
-        if vals[0] is None:
+        if vals[0] is None or f.name == "layout":
             out[f.name] = None
         elif f.name in ("context_lens", "block_tables", "ring_pos"):
             out[f.name] = torch.cat(vals)
@@ -106,6 +128,9 @@ def sharded_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> 
     valid = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
     lse = torch.logsumexp(logits.masked_fill(~valid, float("-inf")), dim=-1)
     return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+_REFUSED = "under a 'model' axis of more than one rank (ROADMAP.md, queue 1, item 3)"
 
 
 def _layer(tree, i: int):
@@ -234,18 +259,56 @@ class DecoderLM:
             "out_proj": stacked_dense(di, d),
         }
 
-    def _apply_ffn(self, p, x, ffn_kind: str):
+    def _apply_ffn(self, p, x, ffn_kind: str, batch_axes=()):
         """The residual branch of the sub-layer's FFN on x [..., d] and its
-        load-balance loss (None but for MoE): a dense MLP, or MoE over x as
-        one row of tokens per leading index (the decode step's [b, d] as b
-        rows of one token, as the reference's ``[:, None, :]``)."""
-        hn = rmsnorm(p["mlp_norm"], x, self.cfg.norm_eps)
+        load-balance loss (None but for MoE): a dense MLP (on the rank's
+        d_ff under TP), or MoE over x as one row of tokens per leading
+        index (the decode step's [b, d] as b rows of one token, as the
+        reference's ``[:, None, :]``; ``batch_axes``: the mesh axes x's
+        rows are split over)."""
+        cfg = self.cfg
+        hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
         if ffn_kind == "moe":
-            y, aux = moe_apply(p["moe"], hn if hn.dim() == 3 else hn[:, None, :], self.cfg)
+            y, aux = moe_apply(p["moe"], hn if hn.dim() == 3 else hn[:, None, :], cfg,
+                               batch_axes=batch_axes)
             return (y if x.dim() == 3 else y[:, 0]), aux
-        if self.cfg.mlp_type == "swiglu":
-            return swiglu(p["mlp"], hn), None
-        return gelu_mlp(p["mlp"], hn), None
+        ff = cfg.d_ff_dense if (cfg.family == "moe" and cfg.d_ff_dense) else cfg.d_ff
+        if cfg.mlp_type == "swiglu":
+            return swiglu(p["mlp"], hn, ff), None
+        return gelu_mlp(p["mlp"], hn, ff), None
+
+    def _heads(self, p, x, n: int):
+        """x [..., d] -> [..., heads, hd] through a column-parallel weight:
+        this rank's heads when the n heads shard over TP (the GQA policy),
+        else all n (the columns gathered over 'model' when the weight
+        split them off head boundaries)."""
+        y = dense(p, x)
+        if y.shape[-1] < n * self.cfg.head_dim and not sharding.heads_sharded(n):
+            y = sharding.all_gather(y, "model", -1)
+        return y.reshape(*y.shape[:-1], -1, self.cfg.head_dim)
+
+    def _kv_for(self, q, k, v):
+        """The kv groups of q's heads [b, s, h_l, d]: k and v as they are
+        when they hold exactly those groups; this rank's slice of whole
+        groups when only the heads shard over TP (or one group a head,
+        where the heads straddle groups)."""
+        cfg = self.cfg
+        h_l, qpg = q.shape[2], cfg.num_heads // cfg.num_kv_heads
+        if h_l == k.shape[2] * qpg:
+            return k, v
+        h0 = sharding.axis_index("model") * h_l
+        if qpg % h_l == 0 or (h0 % qpg == 0 and h_l % qpg == 0):
+            idx = slice(h0 // qpg, (h0 + h_l - 1) // qpg + 1)
+        else:
+            idx = torch.arange(h0, h0 + h_l, device=k.device) // qpg
+        return k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+
+    def _check_mesh(self, vision: bool = False):
+        cfg = self.cfg
+        if sharding.axis_size("model") > 1 and (cfg.has_ssm or cfg.sliding_window or vision):
+            what = ("image prompts" if vision else "the SSM and hybrid families"
+                    if cfg.has_ssm else "sliding-window attention")
+            raise NotImplementedError(f"{cfg.name}: {what} {_REFUSED}")
 
     def _mix(self, p, outs: dict):
         """The token mixers' sum into the residual: the one branch, or the
@@ -258,6 +321,8 @@ class DecoderLM:
                       + rmsnorm(p["ssm_out_norm"], outs["ssm"], eps))
 
     def _logits(self, params, x):
+        """x @ table.T: this rank's vocab columns when the table is
+        vocab-sharded."""
         table = params.get("lm_head", params["embed"])["table"]
         return x @ table.T.to(x.dtype)
 
@@ -265,22 +330,24 @@ class DecoderLM:
         return torch.as_tensor(tokens, device=self.device).long()
 
     # ------------------------------------------------- full-seq forward
-    def _sub_full(self, p, x, positions, ffn_kind: str, return_kv: bool = True):
+    def _sub_full(self, p, x, positions, ffn_kind: str, return_kv: bool = True,
+                  batch_axes=()):
         """One layer over the whole sequence -> (x, its KV / SSM caches when
-        ``return_kv``, its MoE load-balance loss or None)."""
+        ``return_kv``, its MoE load-balance loss or None).  Under TP, q, k
+        and v hold this rank's heads and groups (the caches too)."""
         cfg = self.cfg
         outs, caches = {}, {}
         if cfg.has_attention:
             h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
             b, s, _ = h.shape
-            q = dense(p["attn"]["q"], h).reshape(b, s, cfg.num_heads, cfg.head_dim)
-            k = dense(p["attn"]["k"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-            v = dense(p["attn"]["v"], h).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
-            a = flash_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window,
+            q = rope(self._heads(p["attn"]["q"], h, cfg.num_heads), positions, cfg.rope_theta)
+            k = rope(self._heads(p["attn"]["k"], h, cfg.num_kv_heads), positions,
+                     cfg.rope_theta)
+            v = self._heads(p["attn"]["v"], h, cfg.num_kv_heads)
+            kq, vq = self._kv_for(q, k, v)
+            a = flash_attention(q, kq, vq, causal=True, sliding_window=cfg.sliding_window,
                                 prefix_len=cfg.num_meta_tokens)
-            outs["attn"] = dense(p["attn"]["o"], a.reshape(b, s, -1))
+            outs["attn"] = row_dense(p["attn"]["o"], a.reshape(b, s, -1), cfg.attn_dim)
             if return_kv:
                 caches["k"], caches["v"] = k, v
         if cfg.has_ssm:
@@ -291,7 +358,7 @@ class DecoderLM:
         x = x + self._mix(p, outs)
         aux = None
         if ffn_kind != "none":
-            y, aux = self._apply_ffn(p, x, ffn_kind)
+            y, aux = self._apply_ffn(p, x, ffn_kind, batch_axes)
             x = x + y
         return x, caches, aux
 
@@ -301,7 +368,7 @@ class DecoderLM:
         prefix in front of everything (hymba).  Returns (x, offset) where
         offset is where text starts."""
         cfg = self.cfg
-        x = params["embed"]["table"][tokens]
+        x = embed(params["embed"], tokens, cfg.padded_vocab)
         offset = 0
         if cfg.family == "vlm" and vision_embeds is not None:
             vis = torch.as_tensor(vision_embeds, device=self.device).to(x.dtype)
@@ -354,13 +421,16 @@ class DecoderLM:
         return loss, {"nll": nll, "aux": aux}
 
     # ---------------------------------------------------------- prefill
-    def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True):
+    def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True,
+                batch_axes: tuple[str, ...] = ()):
         """Run the prompt (image tokens of a VLM batch's ``vision_embeds``
         first), return (last-token logits, DecodeState); context lengths
         and positions count the image tokens.  ``remat`` is accepted for
         call compatibility; there is no backward here to rematerialize
-        for."""
+        for.  Under a mesh the batch holds this rank's rows, split over
+        ``batch_axes``."""
         del remat
+        self._check_mesh(vision=batch.get("vision_embeds") is not None)
         tokens = self._tokens(batch["tokens"])
         b = tokens.shape[0]
         x, _ = self._embed_inputs(params, tokens, batch.get("vision_embeds"))
@@ -368,20 +438,43 @@ class DecoderLM:
         positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
         per_layer = []
         for _, p, kind in self._sublayers(params):
-            x, caches, _ = self._sub_full(p, x, positions, kind)
+            x, caches, _ = self._sub_full(p, x, positions, kind, batch_axes=batch_axes)
             per_layer.append(caches)
         caches = {key: torch.stack([c[key] for c in per_layer]) for key in per_layer[0]}
         del per_layer
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
         logits = self._logits(params, x[:, -1, :])
-        return logits, self._caches_to_state(caches, b, s_total, max_blocks_margin)
+        return logits, self._caches_to_state(caches, b, s_total, max_blocks_margin, batch_axes)
 
-    def _caches_to_state(self, caches, b, s_total, margin) -> DecodeState:
+    def _place_pages(self, k_pages, v_pages, batch_axes):
+        """Prefill pages [L, b, per_seq, bs, g, hd], computed with this
+        rank's kv groups (TP) or batch rows (batch split over 'model' in the
+        folded deployment) -> the decode state's layout: the pages' per_seq
+        over 'model' when it divides (one all_to_all: the rank's page slice
+        of every group or row), else whole on every rank (an all_gather of
+        the groups or rows).  Returns (k_pages, v_pages, MeshLayout)."""
+        tp = sharding.axis_size("model")
+        seq_parallel = tp > 1 and k_pages.shape[2] % tp == 0
+        src = (4 if k_pages.shape[4] < self.cfg.num_kv_heads
+               else 1 if "model" in batch_axes else None)
+
+        def place(x):
+            if src is not None and seq_parallel:
+                return sharding.all_to_all(x, "model", split_dim=2, concat_dim=src)
+            if src is not None:
+                return sharding.all_gather(x, "model", src)
+            return sharding.take_shard(x, "model", 2).contiguous() if seq_parallel else x
+
+        layout = MeshLayout(tuple(a for a in batch_axes if a != "model"), seq_parallel)
+        return place(k_pages), place(v_pages), layout
+
+    def _caches_to_state(self, caches, b, s_total, margin, batch_axes=()) -> DecodeState:
         """Per-layer prefill caches ([L, b, ...]) -> DecodeState: paged KV
         with ``margin`` empty pages after the prompt's and identity block
-        tables; or, for sliding-window archs, a ring of ``window +
-        BLOCK_SIZE`` slots holding the newest tokens plus the meta KV; and
-        the SSM states as they are."""
+        tables (under a mesh, placed by ``_place_pages``); or, for
+        sliding-window archs, a ring of ``window + BLOCK_SIZE`` slots
+        holding the newest tokens plus the meta KV; and the SSM states as
+        they are."""
         cfg = self.cfg
         bs = self.BLOCK_SIZE
         dev = self.device
@@ -408,9 +501,20 @@ class DecoderLM:
                 state.ring_pos[:, slots] = tail_pos.to(torch.int32)
             else:
                 state.k_pages, state.v_pages, state.block_tables = paged_kv(k, v, bs, margin)
+                if sharding.get_mesh() is not None:
+                    state.k_pages, state.v_pages, state.layout = self._place_pages(
+                        state.k_pages, state.v_pages, batch_axes)
+                    b, pps = state.k_pages.shape[1], state.k_pages.shape[2]
+                    state.context_lens = torch.full((b,), s_total, dtype=torch.int32,
+                                                    device=dev)
+                    state.block_tables = (identity_slice(b, pps, dev)
+                                          if state.layout.seq_parallel
+                                          else state.block_tables[:1].repeat(b, 1))
         if cfg.has_ssm:
             state.ssd_state = caches["ssd"]    # [L, b, nh, hd, ns]
             state.conv_state = caches["conv"]  # [L, b, k-1, c]
+        if sharding.get_mesh() is not None and state.layout is None:
+            state.layout = MeshLayout(tuple(a for a in batch_axes if a != "model"))
         return state
 
     def decode_state_shape(self, batch: int, context_len: int, *, margin: int = 16,
@@ -448,15 +552,34 @@ class DecoderLM:
 
     # ------------------------------------------------------ decode step
     def _attn_qkv(self, p, h, pos):
+        """The new token's q, k, v [b, heads, hd] (this rank's heads and
+        groups under TP)."""
         cfg = self.cfg
-        b, _ = h.shape
         hn = rmsnorm(p["attn_norm"], h, cfg.norm_eps)
-        q = dense(p["attn"]["q"], hn).reshape(b, 1, cfg.num_heads, cfg.head_dim)
-        k = dense(p["attn"]["k"], hn).reshape(b, 1, cfg.num_kv_heads, cfg.head_dim)
-        v = dense(p["attn"]["v"], hn).reshape(b, 1, cfg.num_kv_heads, cfg.head_dim)
+        q = self._heads(p["attn"]["q"], hn, cfg.num_heads)[:, None]
+        k = self._heads(p["attn"]["k"], hn, cfg.num_kv_heads)[:, None]
+        v = self._heads(p["attn"]["v"], hn, cfg.num_kv_heads)
         q = rope(q, pos[:, None], cfg.rope_theta)[:, 0]
         k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
-        return q, k, v[:, 0]
+        return q, k, v
+
+    def _paged_attention(self, q, k, v, pages: KVPages, state: DecodeState):
+        """Decode attention over the paged KV: every head and group gathered
+        over 'model' (the pages hold every group), the sequence-parallel
+        branch when the state's pages split over 'model', then this rank's
+        heads of the output."""
+        cfg = self.cfg
+        h_l = q.shape[1]
+        if h_l < cfg.num_heads:
+            q = sharding.all_gather(q, "model", 1)
+        if k.shape[1] < cfg.num_kv_heads:
+            k, v = sharding.all_gather(k, "model", 1), sharding.all_gather(v, "model", 1)
+        seq_parallel = state.layout is not None and state.layout.seq_parallel
+        a, pages = paged_decode_with_write(q, k, v, pages, state.block_tables,
+                                           state.context_lens, seq_parallel=seq_parallel)
+        if h_l < cfg.num_heads:
+            a = sharding.take_shard(a, "model", 1)
+        return a, pages
 
     def _sub_decode(self, p, h, state: DecodeState, layer: int, pages: KVPages | None,
                     ffn_kind: str):
@@ -472,16 +595,16 @@ class DecoderLM:
             if cfg.sliding_window:
                 a = self._ring_attention(q, k, v, state, layer)
             else:
-                a, pages = paged_decode_with_write(q, k, v, pages, state.block_tables,
-                                                   state.context_lens)
-            outs["attn"] = dense(p["attn"]["o"], a.reshape(b, -1))
+                a, pages = self._paged_attention(q, k, v, pages, state)
+            outs["attn"] = row_dense(p["attn"]["o"], a.reshape(b, -1), cfg.attn_dim)
         if cfg.has_ssm:
             hn = rmsnorm(p["ssm_norm"], h, cfg.norm_eps)
             outs["ssm"], ssm_state = ssm_step(
                 p["ssm"], hn, cfg, (state.ssd_state[layer], state.conv_state[layer]))
         h = h + self._mix(p, outs)
         if ffn_kind != "none":
-            h = h + self._apply_ffn(p, h, ffn_kind)[0]
+            h = h + self._apply_ffn(p, h, ffn_kind,
+                                    state.layout.batch_axes if state.layout else ())[0]
         return h, pages, ssm_state
 
     def _ring_attention(self, q, k_new, v_new, state: DecodeState, layer: int):
@@ -517,7 +640,13 @@ class DecoderLM:
         new DecodeState sharing ``state``'s pages and rings, updated in
         place, with fresh SSM states)."""
         cfg = self.cfg
-        x = params["embed"]["table"][self._tokens(tokens)]
+        self._check_mesh()
+        x = embed(params["embed"], self._tokens(tokens), cfg.padded_vocab)
+        if state.layout is not None and state.layout.seq_parallel:
+            b, pps = state.block_tables.shape
+            if not torch.equal(state.block_tables, identity_slice(b, pps, self.device)):
+                raise ValueError("sequence-parallel decode needs the identity page layout: "
+                                 "rank i holds pages [i*pps, (i+1)*pps) of every sequence")
         new = dataclasses.replace(state)
         if state.ring_pos is not None:  # every layer writes the same slot and position
             pos = state.context_lens

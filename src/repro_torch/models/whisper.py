@@ -36,6 +36,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.models import sharding
 from repro_torch.models.attention import KVPages, paged_decode_with_write
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
@@ -218,12 +219,20 @@ class EncDecLM:
             cross_v=meta((L, batch, cfg.encoder_seq, g, hd)),
         )
 
+    def _check_mesh(self):
+        if sharding.get_mesh() is not None:
+            raise NotImplementedError(f"{self.cfg.name}: the encoder-decoder under a mesh "
+                                      f"(ROADMAP.md, queue 1, item 3)")
+
     # ----------------------------------------------------------- prefill
-    def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True):
+    def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True,
+                batch_axes: tuple[str, ...] = ()):
         """Encode ``batch["frames"]`` and run the decoder prompt
         ``batch["tokens"]`` -> (last-token logits, EncDecState).  ``remat``
-        is accepted for call compatibility."""
-        del remat
+        and ``batch_axes`` are accepted for call compatibility (no mesh
+        runs an encoder-decoder yet)."""
+        del remat, batch_axes
+        self._check_mesh()
         enc_out = self.encode(params, batch["frames"])
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         b, s = tokens.shape
@@ -242,6 +251,7 @@ class EncDecLM:
         """One token for every sequence.  tokens: [b] -> (logits [b, V], new
         EncDecState sharing ``state``'s pages, updated in place)."""
         cfg = self.cfg
+        self._check_mesh()
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b = tokens.shape[0]
         pos = state.context_lens

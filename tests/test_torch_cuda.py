@@ -141,6 +141,33 @@ def test_paged_attention_maverick_gqa(gen, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,g,d,per,bs,ctx", [
+    (2, 8, 2, 64, 3, 32, [5, 70]),                       # one partition
+    (8, 32, 4, 128, 40, 16, [1, 640, 17, 300, 0, 639, 630, 2]),  # several, one empty
+    (2, 8, 2, 64, 3, 32, [0, 0]),                        # contexts of 0
+    (3, 32, 4, 128, 12, 32, [384, 264, 0]),              # a rank's slice under TP 4
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_lse(gen, b, h, g, d, per, bs, ctx, dtype):
+    """``return_lse``: the output as without it, lse [b, h] f32 as the
+    plain version's; a context of 0 gives out 0 and lse -inf, no NaN."""
+    q, kp, vp = randn(gen, b, h, d, dtype=dtype), randn(gen, b, per, bs, g, d, dtype=dtype), \
+        randn(gen, b, per, bs, g, d, dtype=dtype)
+    tbl = torch.arange(per, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+    ctx = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    out, lse = paged_attention(q, kp, vp, tbl, ctx, return_lse=True)
+    ref, ref_lse = paged_attention_ref(q, kp, vp, tbl, ctx, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, paged_attention(q, kp, vp, tbl, ctx))
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    empty = ctx == 0
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(ref_lse))
+    assert torch.isneginf(lse[empty]).all() and not torch.isnan(lse).any()
+    assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+    torch.testing.assert_close(lse[~empty], ref_lse[~empty], atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name,design", [("paged_attention", paged_ops.DESIGN),
                                          ("flash_prefill", flash_ops.DESIGN),
                                          ("ssd_scan", ssd_ops.DESIGN)])

@@ -215,7 +215,10 @@ def test_decode_state_shape_matches_jax(arch):
     cfg = get_smoke_config(arch)
     ref = jax_build_model(cfg).decode_state_shape(3, 100)
     got = build_model(pt_smoke_config(arch), device="cpu").decode_state_shape(3, 100)
-    for f in dataclasses.fields(got):
+    # the port's one field more says how a state is split under a mesh: none here
+    extra = {f.name for f in dataclasses.fields(got)} - {f.name for f in dataclasses.fields(ref)}
+    assert extra <= {"layout"} and getattr(got, "layout", None) is None
+    for f in dataclasses.fields(ref):
         r, t = getattr(ref, f.name), getattr(got, f.name)
         assert (r is None) == (t is None), f.name
         if t is not None:
