@@ -100,11 +100,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    each against a single-card run of the same seed and prompts, logits
    and tokens under the margin rule of ``repro_torch.parity``; each
    rank's launches exact; a decode step's collectives by kind.
+15. Training under a ("data", "model") mesh of the same 4 spawned ranks
+   (``--phase 15`` alone, as 14): FSDP over "data", TP over "model"
+   (``make_train_step(mesh=)``).  First, for Yi-9B over (2, 2),
+   granite-moe-3b-a800m folded over (2, 2) (capacity_factor = E / k) and
+   mamba2-780m over (4, 1), each at full width cut to 2 layers in f32, one
+   step under the mesh against the same step on one card (computed in
+   every rank in turn): loss 1e-5, gradient norm 1e-4 relative, every
+   gradient shard and updated param shard 1e-4 in ||err|| / ||ref||.  Then
+   bf16, 3 steps each: Yi-9B cut to 4 layers over (2, 2) at 2 x 2048,
+   granite cut to 4 layers folded over (2, 2) at 4 x 512, mamba2 at its
+   full config over (4, 1) at 4 x 2048: losses finite, flash_prefill
+   (ssd_scan for mamba2) exactly layers x steps x 2 on every rank, every
+   step's collectives by direction and kind equal, in count and bytes, to
+   those ``predict_train_collectives`` enumerates from the placements.
+   Last, Yi's f32 cut through ``launch.train.run_rank`` over (2, 2), 3
+   steps with a checkpoint of the global leaves at step 2: a ``--resume``
+   repeats step 3's loss bit for bit, and the checkpoint restored under
+   (1, 4) gathers to the one-card restore's leaves bit for bit.  Step
+   times, tokens a second, peak memory per rank and the collectives
+   beside the card's name and power limit.
 11. Training: granite-moe-3b-a800m at its full config (every layer and
    expert) through ``launch.train``, batch 4 x 512, 6 steps, the losses
-   finite and falling; then, at its full width cut to 8 layers (the full
+   finite and falling; then, at its full width cut to 4 layers (the full
    state's 55.7 GB checkpoint exceeds what a run may write to the
-   machine's disk), 6 steps, and 3 steps with a checkpoint at step 3 and
+   machine's disk, which phases 12 and 15 share), 6 steps, and 3 steps
+   with a checkpoint at step 3 and
    a ``--resume`` run: the resumed losses equal the uninterrupted run's
    bit for bit.  Then
    Yi-9B at full width cut to 16 layers through ``make_train_step``, two
@@ -118,8 +139,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    checkpoint at step 3: losses finite, ssd_scan (and hymba's
    flash_prefill) exactly layers x steps x 2 under remat; a ``--resume``
    from the checkpoint repeats the uninterrupted run's loss bit for bit
-   (hymba's at its full width cut to 16 layers: the full state's 22 GB
-   checkpoint does not fit beside phase 11's in what a run may write);
+   (hymba's at its full width cut to 8 layers: the full state's 22 GB
+   checkpoint does not fit beside phases 11 and 15's in what a run may
+   write);
    each model's 2-layer f32 cut, a kernel step against a plain step (loss
    1e-5, grad norm 1e-4 relative); mamba2's step timed with each SSD
    backward in this call (the one derived by hand against its first
@@ -197,7 +219,7 @@ TRAIN_SHAPES = [
 BWD_REL = {"float32": 2e-4, "bfloat16": 1e-2}   # flash backward, ||err|| / ||ref||
 GRANITE_TRAIN = ["--arch", "granite-moe-3b-a800m", "--batch", "4", "--seq", "512",
                  "--lr", "3e-3"]
-GRANITE_CKPT_LAYERS = 8            # the checkpointed granite cut (17 GB on disk)
+GRANITE_CKPT_LAYERS = 4            # the checkpointed granite cut (about 9 GB on disk)
 YI_TRAIN_LAYERS = 16               # Yi-9B cut in depth for its train state to fit
 YI_TRAIN_BATCH = 2
 TRAIN_LOSS_RTOL = 1e-5             # kernel step vs plain step, f32 2-layer Yi cut
@@ -215,7 +237,7 @@ SSD_TRAIN_SHAPES = [
 SSM_TRAIN = ["--batch", "2", "--seq", "4096"]   # phase 12: the reference's train_4k length
 SSM_TRAIN_STEPS = 4
 SSM_CKPT_EVERY = 3                 # checkpoint at step 3, resume for step 4
-HYMBA_CKPT_LAYERS = 16             # hymba's checkpointed cut (its full one is 22 GB)
+HYMBA_CKPT_LAYERS = 8              # hymba's checkpointed cut (its full one is 22 GB)
 SSD_AB_ROUNDS = 2                  # phase 12's mamba2 step, each SSD backward
 MESH_RANKS = 4                     # phase 14's ranks (one card: gloo)
 MESH_YI_BATCHES = ((3, 1024), (3, 96))   # (batch, tokens): 48 pages (12 a rank), then 19
@@ -228,6 +250,22 @@ MESH_F32_LAYERS = {"yi-9b": 8, "granite-moe-3b-a800m": 4}   # the f32 runs' dept
 # versions' 2e-4 scaled by the depth
 MESH_LOGIT_TOL = {"bfloat16": 0.25, "float32": 2e-3}
 MESH_TIMEOUT = 900.0
+# phase 15: (name, arch, depth cut or None, mesh, batch, tokens) of the bf16 runs
+MTRAIN_RUNS = [
+    ("yi-9b x4", "yi-9b", 4, (2, 2), 2, 2048),
+    ("granite-moe-3b-a800m x4", "granite-moe-3b-a800m", 4, (2, 2), 4, 512),
+    ("mamba2-780m", "mamba2-780m", None, (4, 1), 4, 2048),
+]
+MTRAIN_STEPS = 3
+MTRAIN_F32_LAYERS = 2              # the f32 cuts held against one card
+MTRAIN_F32 = [("yi-9b", (2, 2), 2, 512), ("granite-moe-3b-a800m", (2, 2), 4, 512),
+              ("mamba2-780m", (4, 1), 4, 512)]   # (arch, mesh, batch, tokens)
+MTRAIN_LOSS_RTOL = 1e-5            # mesh step vs one card, f32
+MTRAIN_GNORM_RTOL = 1e-4
+MTRAIN_GRAD_REL = 1e-4             # each gradient shard, ||err|| / ||ref||
+MTRAIN_PARAM_REL = 1e-4            # each updated param shard, ||err|| / ||ref||
+MTRAIN_CKPT = ((2, 2), (1, 4))     # the Yi f32 cut's checkpoint: saved under, restored under
+MTRAIN_CKPT_BATCH = (2, 512)
 
 
 def log(msg: str) -> None:
@@ -1645,7 +1683,7 @@ def phase_train_ssm(dev, card):
     finite, ssd_scan (and hymba's flash_prefill) exactly layers x steps x 2
     (remat).  Then ``--resume`` from that checkpoint: the resumed step's
     loss equals the uninterrupted run's bit for bit (hymba's full state's
-    checkpoint is 22 GB, more than a run may write beside phase 11's, so
+    checkpoint is 22 GB, more than a run may write beside phases 11 and 15's, so
     hymba's restart runs at its full width cut to HYMBA_CKPT_LAYERS
     layers).  Then each model's 2-layer f32 cut, one make_train_step step
     through the kernels and one through the plain versions (autograd
@@ -2151,6 +2189,530 @@ def phase_mesh(card):
     return records
 
 
+# ----------------------------------------------------------- phase 15
+def _numel_bytes(shape, dtype):
+    import math
+
+    import torch
+
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def predict_train_collectives(model, shape, batch, seq, dtype, remat=True):
+    """The collectives of one ``make_train_step`` step of ``model`` (a
+    dense, MoE or SSM ``DecoderLM``, one layer a group) on one rank of a
+    ("data", "model") mesh of ``shape``, weights cast to ``dtype`` (None:
+    the init's, bf16 with the SSM's f32 vectors), a global
+    batch of ``batch`` x ``seq`` tokens: {"forward"|"backward": {kind:
+    {"count", "bytes"}}}, enumerated from the placement rules
+    (``launch.shardings``) and the model code's collective rules
+    (``models.sharding``'s gradient convention): each FSDP leaf gathered
+    over 'data' at its use and reduce-scattered back; the GQA gathers of
+    k/v (or q) over 'model'; the row-parallel and embedding sums; the
+    vocab-sharded loss's three sums; ``copy_to_model`` at each
+    column-parallel input; the MoE exchange both ways and the expert
+    halves' gathers; under remat each group's forward again, less its
+    trailing sums after the last value the backward needs (the final
+    row-parallel sum, the MoE aux loss's); the DP gradient sums (one a
+    set of axes and an axis) and the clip norm's one a split axis."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shardings import (
+        batch_spec, fsdp_plan, grad_reduce_axes, param_sharding, shard_tensor, spec_axes,
+        spec_leaves, split_axes)
+    from repro_torch.models import sharding
+    from repro_torch.models.moe import capacity, group_size
+    from repro_torch.tree import leaves
+
+    cfg = model.cfg
+    if model.group != 1 or cfg.family not in ("dense", "moe", "ssm") or cfg.num_meta_tokens:
+        raise NotImplementedError(f"no collective model for {cfg.name}")
+    fold = cfg.fold_model_axis_into_dp
+    mesh = Mesh.view({"data": shape[0], "model": shape[1]}, 0)
+    full = model.param_shapes()
+    train_specs = param_sharding(full, mesh, mode="train", fold_model=fold)
+    plan = fsdp_plan(full, mesh, fold_model=fold)
+    out = {"forward": {}, "backward": {}}
+    pd = dtype or torch.bfloat16   # the activations' dtype, and the weights' gradients'
+
+    def add(direction, kind, shp, dt=pd, n=1):
+        s = out[direction].setdefault(kind, {"count": 0, "bytes": 0})
+        s["count"] += n
+        s["bytes"] += n * _numel_bytes(shp, dt)
+
+    def train_shape(path):
+        node, sp = full, train_specs
+        for k in path:
+            node, sp = node[k], sp[k]
+        return list(shard_tensor(node, sp, mesh).shape)
+
+    def gathers(path, n=1, lead=0):
+        """The FSDP gathers of the leaves under ``path`` (forward ``n``
+        times), each reduce-scattered once; returns the serving shapes."""
+        shapes = {}
+        node = plan
+        for k in path:
+            node = node[k]
+
+        def walk(p, pl):
+            if isinstance(pl, dict):
+                for k in pl:
+                    walk(p + [k], pl[k])
+                return
+            shp = train_shape(p)
+            for dim, axes in pl:
+                for a in reversed(axes):
+                    if mesh.shape[a] == 1:   # a no-op, as every collective over one rank
+                        continue
+                    before = list(shp)
+                    shp[dim] *= mesh.shape[a]
+                    add("forward", "all-gather", shp[lead:], n=n)
+                    add("backward", "reduce-scatter", before[lead:])
+            shapes[tuple(p)] = shp[lead:]
+        walk(list(path), node)
+        return shapes
+
+    bspec = batch_spec(mesh, batch, fold_model=fold)
+    baxes = spec_axes(bspec[0]) if bspec else ()
+    split = math.prod(mesh.shape[a] for a in baxes)
+    bl, d = batch // split, cfg.d_model
+    n_sums = len([a for a in baxes if mesh.shape[a] > 1])   # an all_reduce over the batch's axes
+    with sharding.mesh_context(mesh, fold_model_axis=fold):
+        tp = sharding.tp_size()
+        reps = 2 if remat else 1
+        # the embedding: its table gathered, the vocab-sharded lookup's sum
+        emb = gathers(["embed"])[("embed", "table")]
+        if emb[0] < cfg.padded_vocab:
+            add("forward", "all-reduce", (bl, seq, d), torch.float32)
+        # each layer: FSDP gathers (twice under remat), then its own collectives
+        for _ in range(model.n_steps):
+            serve = gathers(["layers"], n=reps, lead=1)
+            tail = []   # forward records after the last saved value: not recomputed
+            if cfg.has_attention:
+                A, hd = cfg.attn_dim, cfg.head_dim
+                for name, n in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
+                                ("v", cfg.num_kv_heads)):
+                    cols = serve[("layers", "attn", name, "w")][-1]
+                    if cols < n * hd and not sharding.heads_sharded(n):
+                        add("forward", "all-gather", (bl, seq, n * hd), n=reps)
+                        add("backward", "reduce-scatter", (bl, seq, cols))
+                if serve[("layers", "attn", "q", "w")][-1] < A and tp > 1:
+                    add("backward", "all-reduce", (bl, seq, d))       # copy_to_model
+                if serve[("layers", "attn", "o", "w")][-2] < A:
+                    add("forward", "all-reduce", (bl, seq, d), torch.float32, n=reps)
+            if cfg.family == "dense":
+                ff = cfg.d_ff
+                if serve[("layers", "mlp", "gate", "w")][-1] < ff and tp > 1:
+                    add("backward", "all-reduce", (bl, seq, d))
+                if serve[("layers", "mlp", "down", "w")][-2] < ff:
+                    tail.append(("all-reduce", (bl, seq, d), torch.float32))
+            if cfg.family == "moe":
+                e, e_pad, k, ff = (cfg.num_experts, cfg.padded_experts, cfg.experts_per_token,
+                                   cfg.d_ff)
+                n_tok = batch * seq
+                gs = group_size(n_tok, sharding.dp_size())
+                g, g_l, cap = n_tok // gs, bl * seq // gs, capacity(gs, k, e,
+                                                                      cfg.capacity_factor)
+                if split > 1 and g % split:
+                    raise NotImplementedError("a MoE group spanning ranks")
+                gate = serve[("layers", "moe", "gate")]
+                tp_split = tp > 1 and gate[-1] < ff
+                if tp_split:
+                    add("backward", "all-reduce", (g_l, e_pad * cap, d))
+                ff_sharded = tp > 1 and ff % tp == 0 and ff // tp >= 128
+                if gate[-1] < ff and not ff_sharded:
+                    for w in ("gate", "up", "down"):
+                        before = serve[("layers", "moe", w)]
+                        after = list(before)
+                        after[-1 if w != "down" else -2] = ff
+                        add("forward", "all-gather", after, n=reps)
+                        add("backward", "reduce-scatter", before)
+                    gate = [gate[0], gate[1], ff]
+                dsize = sharding.axis_size("data")
+                if g % sharding.dp_size() or e_pad % dsize or dsize == 1:
+                    raise NotImplementedError("the MoE's local branch")
+                if tuple(a for a in sharding.dp_axes() if a not in baxes):
+                    raise NotImplementedError("MoE rows over DP axes outside the batch's")
+                for _ in range(2):  # the exchange there and back, both ways
+                    add("forward", "all-to-all", (g_l, e_pad * cap, d), n=reps)
+                    add("backward", "all-to-all", (g_l, e_pad * cap, d))
+                if gate[-1] < ff:
+                    add("forward", "all-reduce", (gate[0], g_l * dsize * cap, d),
+                        torch.float32, n=reps)
+                tail += [("all-reduce", (), torch.float32)] * n_sums
+            for kind, shp, dt in tail:
+                add("forward", kind, shp, dt)
+        # the head: its table gathered, then the loss
+        head = "lm_head" if "lm_head" in full else "embed"
+        table = gathers([head])[(head, "table")]
+        if table[0] < cfg.padded_vocab:
+            add("backward", "all-reduce", (bl, seq - 1, d))           # copy_to_model
+            add("forward", "all-reduce", (bl, seq - 1), torch.float32, n=3)
+        add("forward", "all-reduce", (), torch.float32, n=n_sums)
+        # after the backward: the DP sums (one a set of axes and a dtype),
+        # then the clip's norm
+        specs = spec_leaves(train_specs)
+        groups = {}
+        for x, sp in zip(leaves(full), specs):
+            axes = grad_reduce_axes(sp, mesh, fold_model=fold)
+            if axes:
+                key = (axes, dtype or x.dtype)
+                groups[key] = groups.get(key, 0) + shard_tensor(x, sp, mesh).numel()
+        for (axes, _), n in groups.items():
+            add("backward", "all-reduce", (n,), torch.float32, n=len(axes))
+        for axis in mesh.axis_names:
+            if mesh.shape[axis] > 1 and any(axis in split_axes(sp) for sp in specs):
+                add("backward", "all-reduce", (len(specs),), torch.float32)
+    return out
+
+
+def _mesh_train_cfg(arch, layers=None, f32=False):
+    """A phase-15 config: ``arch`` at full width, cut to ``layers``; for the
+    f32 comparisons MoE at capacity_factor = E / k, so that the mesh's MoE
+    groups (sized by its DP extent) hold the one card's tokens and no pair
+    drops."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if f32 and cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def _train_launches(arch, layers, steps):
+    """A mesh train run's launches on each rank: flash_prefill (ssd_scan for
+    mamba2) once a layer a step, twice under remat; nothing else."""
+    want = dict.fromkeys(kernel_ops(), 0)
+    want["ssd_scan" if arch.startswith("mamba2") else "flash_prefill"] = layers * steps * 2
+    return want
+
+
+def _rel(got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / max(float(ref.double().norm()), 1e-30))
+
+
+def _f32_vs_one_card(dev, rank, world, arch, shape, b, s):
+    """One f32 step of ``arch``'s 2-layer full-width cut under the mesh
+    against the same step on one card (same seed and batch).  The one-card
+    step runs in every rank, one rank at a time between barriers, each
+    keeping its slices of the gradients and updated params."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import build_params, make_mesh
+    from repro_torch.launch.shardings import param_sharding, shard_tensor, spec_leaves
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = _mesh_train_cfg(arch, MTRAIN_F32_LAYERS, f32=True)
+    fold = cfg.fold_model_axis_into_dp
+    model = build_model(cfg, device=dev)
+    mesh = make_mesh(shape, ("data", "model"), dev)
+    specs = spec_leaves(param_sharding(model.param_shapes(), mesh, mode="train",
+                                       fold_model=fold))
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=4)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32), device=dev)}
+    seen = {}
+    update = steps.adamw_update
+
+    def spy(params, grads, state, c, **kw):   # the gradients the step applies
+        seen["grads"] = leaves(grads)
+        return update(params, grads, state, c, **kw)
+
+    steps.adamw_update = spy
+    try:
+        ref = None
+        for r in range(world):
+            if r == rank:
+                params = cast_tree(model.init_params(0), torch.float32)
+                opt = adamw_init(params, ocfg)
+                params, opt, met = steps.make_train_step(model, ocfg, remat=True)(
+                    params, opt, batch)
+                ref = {"loss": float(met["loss"]), "gnorm": float(met["grad_norm"]),
+                       "grads": [shard_tensor(g, sp, mesh) for g, sp in
+                                 zip(seen.pop("grads"), specs)],
+                       "params": [shard_tensor(p, sp, mesh) for p, sp in
+                                  zip(leaves(params), specs)]}
+                del params, opt, met
+                free_model()
+            dist.barrier()
+        params = build_params(model, mesh, fold_model=fold, mode="train", dtype=torch.float32)
+        opt = adamw_init(params, ocfg)
+        reset_counts()
+        params, opt, met = steps.make_train_step(model, ocfg, remat=True, mesh=mesh)(
+            params, opt, batch)
+        counts = read_counts()
+    finally:
+        steps.adamw_update = update
+    total = ref["gnorm"]
+    grad_errs, zero_ok = [], True
+    for g, r in zip(seen["grads"], ref["grads"]):
+        if float(r.norm()) <= 1e-6 * total:
+            zero_ok &= float(g.norm()) <= 1e-6 * total
+        else:
+            grad_errs.append(_rel(g, r))
+    out = {"loss": float(met["loss"]), "ref_loss": ref["loss"],
+           "gnorm": float(met["grad_norm"]), "ref_gnorm": ref["gnorm"],
+           "grad_rel": max(grad_errs), "zero_ok": zero_ok,
+           "param_rel": max(_rel(p, r) for p, r in zip(leaves(params), ref["params"])),
+           "counts": counts, "layers": cfg.num_layers}
+    del params, opt, ref, seen
+    free_model()
+    return out
+
+
+def _mesh_train_run(dev, arch, layers, shape, b, s):
+    """``MTRAIN_STEPS`` bf16 steps of ``arch`` (full width, cut to
+    ``layers``) under the mesh: losses, step times, this rank's launches
+    and peak memory, each step's collectives by direction and kind."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLMDataset
+    from repro_torch.launch.hlo_analysis import train_step_stats
+    from repro_torch.launch.mesh import build_params, make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import sharding
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = _mesh_train_cfg(arch, layers)
+    model = build_model(cfg, device=dev)
+    mesh = make_mesh(shape, ("data", "model"), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_params(model, mesh, fold_model=cfg.fold_model_axis_into_dp, mode="train")
+    ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=MTRAIN_STEPS,
+                       fp32_master=cfg.fp32_master)
+    opt = adamw_init(params, ocfg)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    state_gb = sum(t.numel() * t.element_size() for t in leaves((params, opt))) / 1e9
+    step = make_train_step(model, ocfg, remat=True, mesh=mesh)
+    data = SyntheticLMDataset(cfg.vocab_size, s, b)
+    losses, times, colls = [], [], []
+    reset_counts()
+    for _ in range(MTRAIN_STEPS):
+        batch = {"tokens": torch.as_tensor(data.next_batch()["tokens"], device=dev)}
+        sharding.COUNTER.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        times.append(time.perf_counter() - t0)
+        colls.append({d: sharding.COUNTER.summary(d) for d in ("forward", "backward")})
+    wire = {d: st.wire_bytes for d, st in train_step_stats(sharding.COUNTER.records).items()}
+    out = {"losses": losses, "step_s": times, "collectives": colls, "counts": read_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "state_gb": state_gb,
+           "build_s": build_s, "layers": cfg.num_layers, "wire_bytes": wire}
+    del params, opt, model
+    free_model()
+    return out
+
+
+def _mesh_checkpoint(dev, rank, world):
+    """Yi-9B's f32 2-layer cut through ``launch.train.run_rank`` under
+    MTRAIN_CKPT[0]: 3 steps, checkpointed at step 2; a ``--resume`` from it
+    repeats step 3's loss bit for bit.  The checkpoint restored under
+    MTRAIN_CKPT[1] and whole on rank 0's card: every global leaf the
+    former gathers equals the latter's, bit for bit."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import NamedSharding, train_state_shardings
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = _mesh_train_cfg("yi-9b", MTRAIN_F32_LAYERS, f32=True)
+    ckpt = ROOT / "build" / "ckpt_mesh"
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dist.barrier()
+    flags = ["--arch", "yi-9b", "--mesh", ",".join(map(str, MTRAIN_CKPT[0])), "--batch",
+             str(MTRAIN_CKPT_BATCH[0]), "--seq", str(MTRAIN_CKPT_BATCH[1]), "--steps", "3",
+             "--lr", "1e-3", "--ckpt-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    full = train.run_rank(train._parse(flags + ["--ckpt-every", "2"]), cfg, dev, rank, world,
+                          dtype=torch.float32)["losses"]
+    t_full = time.perf_counter() - t0
+    ckpt_gb = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file()) / 1e9
+    free_model()
+    t0 = time.perf_counter()
+    rest = train.run_rank(train._parse(flags + ["--ckpt-every", "100", "--resume"]), cfg, dev,
+                          rank, world, dtype=torch.float32)["losses"]
+    t_resume = time.perf_counter() - t0
+    free_model()
+    model = build_model(cfg, device=dev)
+    shapes = model.param_shapes()
+    like = (shapes, adamw_init(shapes, AdamWConfig()), {"seed": 0, "step": 0})
+    mesh = make_mesh(MTRAIN_CKPT[1], ("data", "model"), dev)
+    p_sh, o_sh = train_state_shardings(shapes, mesh)
+    d_sh = {k: NamedSharding(mesh, ()) for k in like[2]}
+    t0 = time.perf_counter()
+    other = restore_checkpoint(ckpt, 2, like, device=dev, shardings=(p_sh, o_sh, d_sh))
+    t_other = time.perf_counter() - t0
+    whole = restore_checkpoint(ckpt, 2, like, device=dev) if rank == 0 else None
+    equal, n = True, 0
+    for i, (x, sh) in enumerate(zip(leaves(other[:2]), leaves((p_sh, o_sh)))):
+        g = sh.gather(x)
+        if rank == 0:
+            ref = leaves(whole[:2])[i]
+            equal &= tuple(g.shape) == tuple(ref.shape) and torch.equal(g.to(ref.device), ref)
+            n += 1
+    del other, whole
+    free_model()
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"losses": full, "resumed": rest, "checkpoint_gb": ckpt_gb, "run_s": t_full,
+            "resume_s": t_resume, "restore_other_s": t_other, "leaves_equal": equal,
+            "leaves": n}
+
+
+def _mesh_train_rank(dev, rank, world, work):
+    """One rank of phase 15: the f32 comparisons, the bf16 runs, the
+    checkpoint; results to ``work/rank{rank}.pkl``."""
+    import pickle
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import choose_backend
+
+    out = {"backend": choose_backend(world, dev), "f32": {}, "runs": {}}
+    for arch, shape, b, s in MTRAIN_F32:
+        out["f32"][arch] = _f32_vs_one_card(dev, rank, world, arch, shape, b, s)
+    for name, arch, layers, shape, b, s in MTRAIN_RUNS:
+        out["runs"][name] = _mesh_train_run(dev, arch, layers, shape, b, s)
+    out["ckpt"] = _mesh_checkpoint(dev, rank, world)
+    with open(f"{work}/rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def phase_mesh_train(card):
+    """Phase 15: training under a ("data", "model") mesh of MESH_RANKS
+    spawned ranks (gloo on one card, nccl with a card a rank).  Before the
+    spawn, each bf16 run's collectives a step are predicted
+    (``predict_train_collectives``); the ranks then run, in one spawn:
+    (1) for Yi-9B over (2, 2), granite-moe folded over (2, 2) and mamba2 over
+    (4, 1), the f32 2-layer full-width cut's step under the mesh against
+    the same step on one card (loss 1e-5, gradient norm 1e-4 relative, each
+    leaf's gradient shard and updated param shard 1e-4 in ||err|| / ||ref||);
+    (2) MTRAIN_RUNS in bf16, MTRAIN_STEPS steps each: losses finite,
+    flash_prefill (ssd_scan for mamba2) exactly layers x steps x 2 on every
+    rank, every step's collectives equal to the prediction on every rank;
+    (3) the checkpoint of ``_mesh_checkpoint``.  Returns the records."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.registry import build_model
+
+    free_model()
+    t_phase = time.perf_counter()
+    predicted = {name: predict_train_collectives(
+        build_model(_mesh_train_cfg(arch, layers), device="cpu"), shape, b, s, None)
+        for name, arch, layers, shape, b, s in MTRAIN_RUNS}
+    for name, pred in predicted.items():
+        log(f"phase 15: {name}: predicted collectives of a step, per rank: {pred}")
+    with tempfile.TemporaryDirectory() as work:
+        spawn(_mesh_train_rank, MESH_RANKS, f"{work}/init", device="cuda", args=(work,),
+              timeout=MESH_TIMEOUT)
+        ranks = [pickle.load(open(f"{work}/rank{r}.pkl", "rb")) for r in range(MESH_RANKS)]
+    backend = ranks[0]["backend"]
+    records = {"backend": backend, "f32": {}, "runs": {}}
+    for arch, shape, b, s in MTRAIN_F32:
+        worst = {k: max(r["f32"][arch][k] for r in ranks) for k in ("grad_rel", "param_rel")}
+        rank0 = ranks[0]["f32"][arch]
+        for r, rank in enumerate(ranks):
+            got = rank["f32"][arch]
+            what = f"phase 15: {arch} x{got['layers']} f32 over {shape}, rank {r}"
+            lr = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
+            gr = abs(got["gnorm"] - got["ref_gnorm"]) / abs(got["ref_gnorm"])
+            if not (lr <= MTRAIN_LOSS_RTOL and gr <= MTRAIN_GNORM_RTOL
+                    and got["grad_rel"] <= MTRAIN_GRAD_REL and got["zero_ok"]
+                    and got["param_rel"] <= MTRAIN_PARAM_REL):
+                raise AssertionError(f"{what}: loss {got['loss']!r} vs {got['ref_loss']!r}, "
+                                     f"grad norm {got['gnorm']!r} vs {got['ref_gnorm']!r}, "
+                                     f"grad shards {got['grad_rel']:.3e}, params "
+                                     f"{got['param_rel']:.3e}, zeros held {got['zero_ok']}")
+            expect_counts(what, got["counts"], _train_launches(arch, got["layers"], 1))
+        records["f32"][arch] = {"mesh": shape, "batch": (b, s), **worst,
+                                **{k: rank0[k] for k in ("loss", "ref_loss", "gnorm",
+                                                         "ref_gnorm")}}
+        log(f"phase 15 ({card}; {backend}): {arch} x{rank0['layers']} f32 over {shape}, "
+            f"{b} x {s}: one step, loss {rank0['loss']!r} (one card {rank0['ref_loss']!r}), "
+            f"grad norm {rank0['gnorm']!r} (one card {rank0['ref_gnorm']!r}); worst over "
+            f"ranks ||err||/||ref|| of a gradient shard {worst['grad_rel']:.3e}, of an "
+            f"updated param shard {worst['param_rel']:.3e} (limits {MTRAIN_GRAD_REL}, "
+            f"{MTRAIN_PARAM_REL})")
+    for name, arch, layers, shape, b, s in MTRAIN_RUNS:
+        got = ranks[0]["runs"][name]
+        L = got["layers"]
+        for r, rank in enumerate(ranks):
+            run = rank["runs"][name]
+            if not all(np.isfinite(run["losses"])):
+                raise AssertionError(f"phase 15: {name} rank {r}: losses {run['losses']}")
+            expect_counts(f"phase 15: {name} over {shape}, {MTRAIN_STEPS} steps, rank {r}",
+                          run["counts"], _train_launches(arch, L, MTRAIN_STEPS))
+            for i, c in enumerate(run["collectives"]):
+                if c != predicted[name]:
+                    raise AssertionError(f"phase 15: {name} rank {r} step {i}: collectives "
+                                         f"{c} != predicted {predicted[name]}")
+        step_s = sorted(got["step_s"][1:])[len(got["step_s"][1:]) // 2]
+        peak = [rank["runs"][name]["peak_gb"] for rank in ranks]
+        records["runs"][name] = {
+            "mesh": shape, "batch": (b, s), "layers": L, "losses": got["losses"],
+            "step_s": step_s, "first_step_s": got["step_s"][0], "tokens_per_s": b * s / step_s,
+            "peak_gb": peak, "state_gb": got["state_gb"], "build_s": got["build_s"],
+            "counts": got["counts"], "collectives": got["collectives"][-1],
+            "wire_bytes": got["wire_bytes"]}
+        log(f"phase 15 ({card}; {backend}, {MESH_RANKS} ranks): {name} over "
+            f"{dict(zip(('data', 'model'), shape))}, bf16, {b} x {s}, remat: losses "
+            f"{got['losses']}; step {step_s:.4f} s (median of steps 2-{MTRAIN_STEPS}; first "
+            f"{got['step_s'][0]:.4f} s), {b * s / step_s:.0f} tokens/s; peak per rank "
+            f"{[round(x, 2) for x in peak]} GB, train state {got['state_gb']:.2f} GB a rank "
+            f"(built rank by rank in {got['build_s']:.1f} s); launches per rank "
+            f"{got['counts']}; collectives of a step per rank, as predicted: "
+            f"{got['collectives'][-1]}; on the wire by the ring model (hlo_analysis), "
+            f"forward {got['wire_bytes']['forward']:.0f} B, backward "
+            f"{got['wire_bytes']['backward']:.0f} B")
+    ck = [rank["ckpt"] for rank in ranks]
+    if ck[0]["resumed"] != ck[0]["losses"][2:] or not ck[0]["leaves_equal"]:
+        raise AssertionError(f"phase 15: checkpoint: resumed {ck[0]['resumed']} vs "
+                             f"{ck[0]['losses'][2:]}, global leaves equal "
+                             f"{ck[0]['leaves_equal']}")
+    records["ckpt"] = {k: ck[0][k] for k in ck[0]}
+    log(f"phase 15: yi-9b x{MTRAIN_F32_LAYERS} f32 through launch.train.run_rank over "
+        f"{MTRAIN_CKPT[0]}: losses {ck[0]['losses']}; checkpoint at step 2 "
+        f"({ck[0]['checkpoint_gb']:.2f} GB, the run with its save {ck[0]['run_s']:.1f} s); "
+        f"--resume (with its restore {ck[0]['resume_s']:.1f} s) gave {ck[0]['resumed']} = step "
+        f"3's bit for bit; restored under {MTRAIN_CKPT[1]} in {ck[0]['restore_other_s']:.1f} s, "
+        f"its {ck[0]['leaves']} global leaves gathered equal to one card's restore bit for bit")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f}s")
+    return records
+
+
 # ------------------------------------------------------------ phase 5
 def time_ms(fn, iters=50, warmup=3):
     """Device time of one call: ``iters`` calls captured in one CUDA graph,
@@ -2581,9 +3143,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "14"], default="all",
-                    help="14: the build, paged_attention's lse checks and phase 14 alone "
-                         "(the mesh over every card of the machine)")
+    ap.add_argument("--phase", choices=["all", "14", "15"], default="all",
+                    help="14 (15): the build, paged_attention's lse checks and phase 14 "
+                         "(15) alone (the mesh over every card of the machine)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2602,8 +3164,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     lse_err = check_paged_lse(gen, dev)
-    if args.phase == "14":
-        log(f"phase 14 records: {json.dumps(phase_mesh(card), default=str)}")
+    if args.phase in ("14", "15"):
+        phase = phase_mesh if args.phase == "14" else phase_mesh_train
+        log(f"phase {args.phase} records: {json.dumps(phase(card), default=str)}")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2671,6 +3234,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh_runs = phase_mesh(card)
     log(f"phase 14: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mesh_train = phase_mesh_train(card)
+    log(f"phase 15: {time.perf_counter() - t0:.1f}s")
     # each kernel's launches in the new phases' runs, per request where the
     # run served several
     later = {
@@ -2688,6 +3254,8 @@ def main(argv=None) -> int:
         **{f"phase 13 examples/{name}.py": c for name, c in example_counts.items()},
         **{f"phase 14 {run} under mesh {r['mesh']}, each of {MESH_RANKS} ranks": r["counts"]
            for run, r in mesh_runs.items()},
+        **{f"phase 15 {run} train under mesh {r['mesh']}, {MTRAIN_STEPS} steps, each of "
+           f"{MESH_RANKS} ranks": r["counts"] for run, r in mesh_train["runs"].items()},
     }
 
     t0 = time.perf_counter()
@@ -2775,6 +3343,7 @@ def main(argv=None) -> int:
         f"{yi_train['tokens_per_s']:.0f} tokens/s, peak {yi_train['peak_gb']:.2f} GB")
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
     log(f"phase 14 records: {json.dumps(mesh_runs, default=str)}")
+    log(f"phase 15 records: {json.dumps(mesh_train, default=str)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

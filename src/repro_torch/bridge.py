@@ -54,11 +54,14 @@ def params_from_jax(tree, *, device="cpu", dtype: torch.dtype | None = None, mes
     return shard_params(out, mesh, mode=mode, fold_model=fold_model)
 
 
-def opt_state_from_jax(opt_state, *, device="cpu"):
+def opt_state_from_jax(opt_state, *, device="cpu", mesh=None, fold_model: bool = False):
     """A JAX AdamW state (``{"step", "m", "v"[, "master"]}``) whose leaves
     are numpy arrays -> the port's ``optim.adamw`` state: the same dicts,
-    every leaf in its own dtype."""
-    out = {k: params_from_jax(v, device=device) for k, v in opt_state.items() if k != "step"}
+    every leaf in its own dtype; with a ``mesh``, this rank's shards of the
+    moments and master copy, placed as the params in training
+    (``launch.shardings.opt_state_sharding``)."""
+    out = {k: params_from_jax(v, device=device, mesh=mesh, mode="train", fold_model=fold_model)
+           for k, v in opt_state.items() if k != "step"}
     out["step"] = tensor_from_numpy(opt_state["step"], device=device, dtype=torch.int32)
     return out
 

@@ -19,9 +19,20 @@ above 1.07e9 elements) is written as several consecutive bin items, its
 manifest entry counting them in ``parts``.  Such a checkpoint is the
 port's only (the reference cannot write that leaf at all); every other
 checkpoint is byte for byte what the reference's writer gives.
+
+Under a device mesh both ways take ``shardings``, a tree of
+``launch.shardings.NamedSharding`` of the tree's structure (what placed
+each leaf; anything for a Python scalar): ``save_checkpoint`` writes the
+GLOBAL leaves, each gathered by its spec leaf by leaf, one writer (rank
+0), then a barrier; ``restore_checkpoint`` reads the global leaves and
+keeps this rank's shard of each under ``shardings``, which may be of
+another mesh than the one that wrote them (the reference's
+``restore_checkpoint(..., shardings=)``).  The files are the one-device
+format, so either framework, on any mesh or none, reads them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import shutil
@@ -29,6 +40,7 @@ import struct
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import describe, leaves, unflatten
 
@@ -100,21 +112,28 @@ def _read_bytes(f, n: int) -> np.ndarray:
     return buf
 
 
+@torch.no_grad()
 def save_checkpoint(ckpt_dir: str | pathlib.Path, step: int, tree, *,
-                    keep: int = 3) -> pathlib.Path:
+                    keep: int = 3, shardings=None) -> pathlib.Path:
+    """Write ``tree`` as step ``step`` (atomic publish, the newest ``keep``
+    steps kept).  ``shardings``: under a mesh, what placed each leaf; every
+    rank calls this, the leaves are gathered whole one by one, rank 0
+    writes, and a barrier ends the call."""
+    flat = leaves(tree)
+    shards = [None] * len(flat) if shardings is None else leaves(shardings)
+    if len(flat) != len(shards):
+        raise ValueError(f"{len(flat)} leaves, {len(shards)} shardings")
+    writer = shardings is None or dist.get_rank() == 0
     ckpt_dir = pathlib.Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f".tmp_step_{step:08d}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir(parents=True)
 
-    flat = leaves(tree)
     metas = []
     n_items = 0
-    for x in flat:
+    for x, sh in zip(flat, shards):
         if isinstance(x, torch.Tensor):
-            nbytes, shape = x.numel() * x.element_size(), list(x.shape)
+            shape = list(x.shape) if sh is None else sh.whole_shape(x.shape)
+            nbytes = int(np.prod(shape)) * x.element_size()
         else:
             nbytes, shape = np.asarray(x).nbytes, list(np.shape(x))
         meta = {"shape": shape, "dtype": _dtype_name(x)}
@@ -123,24 +142,36 @@ def save_checkpoint(ckpt_dir: str | pathlib.Path, step: int, tree, *,
             meta["parts"] = parts
         metas.append(meta)
         n_items += parts
-    with open(tmp / _DATA, "wb") as f:
-        f.write(_header("array", n_items))
-        for x in flat:
+    if writer:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+    with open(tmp / _DATA, "wb") if writer else contextlib.nullcontext() as f:
+        if writer:
+            f.write(_header("array", n_items))
+        for x, sh in zip(flat, shards):
+            if isinstance(x, torch.Tensor) and sh is not None:
+                x = sh.gather(x)
+            if not writer:
+                continue
             raw = memoryview(_leaf_array(x).reshape(-1).view(np.uint8))
             for lo in range(0, max(len(raw), 1), _BIN_MAX):
                 part = raw[lo:lo + _BIN_MAX]
                 f.write(_header("bin", len(part)))
                 f.write(part)
-    manifest = {"step": step, "treedef": describe(tree), "leaves": metas}
-    (tmp / _MANIFEST).write_text(json.dumps(manifest))
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)  # atomic publish
+    if writer:
+        manifest = {"step": step, "treedef": describe(tree), "leaves": metas}
+        (tmp / _MANIFEST).write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic publish
 
-    # retention
-    steps = sorted(p for p in ckpt_dir.glob("step_*"))
-    for old in steps[:-keep]:
-        shutil.rmtree(old)
+        # retention
+        steps = sorted(p for p in ckpt_dir.glob("step_*"))
+        for old in steps[:-keep]:
+            shutil.rmtree(old)
+    if shardings is not None:
+        dist.barrier()
     return final
 
 
@@ -161,25 +192,29 @@ def _tensor(buf: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
 
 
 def restore_checkpoint(ckpt_dir: str | pathlib.Path, step: int, like_tree, *,
-                       device=None):
+                       device=None, shardings=None):
     """Restore into the structure of ``like_tree``: each leaf a tensor of
     its saved dtype, on ``device`` where the matching leaf of ``like_tree``
     is a tensor (default: that tensor's device; ``like_tree`` may then hold
     meta tensors, so that the state never exists twice on the card), on
-    the CPU where it is a Python scalar."""
+    the CPU where it is a Python scalar.  ``shardings``: a tree of
+    ``NamedSharding`` of ``like_tree``'s structure, whose leaves hold the
+    GLOBAL shapes: each leaf is read whole and this rank's shard of it
+    kept (cut on the host, then moved)."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((path / _MANIFEST).read_text())
     like = leaves(like_tree)
     metas = manifest["leaves"]
     if len(metas) != len(like):
         raise ValueError(f"checkpoint has {len(metas)} leaves, target tree {len(like)}")
+    shards = leaves(shardings) if shardings is not None else [None] * len(like)
     out = []
     with open(path / _DATA, "rb") as f:
         n_items = _read_header(f, _ARRAY, "array")
         if n_items != sum(m.get("parts", 1) for m in metas):
             raise ValueError(f"checkpoint payload has {n_items} items, its manifest "
                              f"{sum(m.get('parts', 1) for m in metas)}")
-        for meta, ref in zip(metas, like):
+        for meta, ref, sh in zip(metas, like, shards):
             chunks = [_read_bytes(f, _read_header(f, _BIN, "bin"))
                       for _ in range(meta.get("parts", 1))]
             buf = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
@@ -191,5 +226,8 @@ def restore_checkpoint(ckpt_dir: str | pathlib.Path, step: int, like_tree, *,
                 dev = "cpu"
             else:
                 dev = ref.device if device is None else device
-            out.append(_tensor(buf, meta["dtype"], shape, dev))
+            if sh is None or not isinstance(ref, torch.Tensor):
+                out.append(_tensor(buf, meta["dtype"], shape, dev))
+            else:
+                out.append(sh.shard(_tensor(buf, meta["dtype"], shape, "cpu")).to(dev))
     return unflatten(like_tree, out)

@@ -14,12 +14,20 @@ reference's:
   reduce-scatter     : in_bytes
   all-to-all         : bytes
   collective-permute : bytes
+A reduce-scatter's record holds this rank's slice (its result), so its
+in_bytes are the slice's times the group size.
+
+A train step (``train_step_stats``) splits its records by direction: the
+forward (the loss's, with a remat'd group's recompute in the backward,
+whose records are forward ones) and the backward (autograd's: the
+reduce-scatters of the FSDP gathers, ``copy_to_model``'s sums, the
+inverse all-to-alls; then the DP gradient sums and the clip's norm).
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["CollectiveStats", "collective_stats"]
+__all__ = ["CollectiveStats", "collective_stats", "train_step_stats"]
 
 _COLLECTIVE_KINDS = (
     "all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute",
@@ -53,7 +61,16 @@ def collective_stats(records) -> CollectiveStats:
     for r in records:
         by_bytes[r.kind] += r.nbytes
         by_count[r.kind] += 1
-        wire += r.nbytes * _WIRE_FACTOR[r.kind]
+        on_wire = r.nbytes * _WIRE_FACTOR[r.kind]
+        if r.kind == "reduce-scatter":
+            on_wire *= r.group_size   # in_bytes: the record holds the slice
+        wire += on_wire
         if r.dtype == torch.float32:
-            f32_wire += r.nbytes * _WIRE_FACTOR[r.kind]
+            f32_wire += on_wire
     return CollectiveStats(by_bytes, by_count, wire, f32_wire)
+
+
+def train_step_stats(records) -> dict[str, CollectiveStats]:
+    """A train step's records → {"forward": stats, "backward": stats}."""
+    return {d: collective_stats([r for r in records if r.direction == d])
+            for d in ("forward", "backward")}

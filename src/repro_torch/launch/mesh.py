@@ -25,7 +25,8 @@ through host copies).  The choice is printed and never changed because a
 call failed.
 
 Serving under a mesh of spawned ranks (``spawn``; params from
-``build_params``, the steps of ``launch.steps`` with ``mesh=``):
+``build_params``, the steps of ``launch.steps`` with ``mesh=``; training
+under one is ``launch.train --mesh``):
 
     PYTHONPATH=src python -m repro_torch.launch.mesh --arch yi-9b --smoke \
         --mesh 1,4 --device cpu                                 # gloo on the CPU
@@ -163,9 +164,11 @@ def _rank_main(rank, fn, world_size, init_file, device, args):
         dist.destroy_process_group()
 
 
-def build_params(model, mesh, *, seed: int = 0, dtype=None, fold_model: bool = False):
-    """This rank's serving shards of ``model``'s seed-``seed`` params
-    (``dtype``: a cast of the whole tree first).  The ranks build the full
+def build_params(model, mesh, *, seed: int = 0, dtype=None, fold_model: bool = False,
+                 mode: str = "serve"):
+    """This rank's shards of ``model``'s seed-``seed`` params under the
+    ``mode`` placements (``serve``, or ``train``: FSDP over 'data' too;
+    ``dtype``: a cast of the whole tree first).  The ranks build the full
     params one after another between barriers, so that ranks sharing one
     card hold one full copy at a time, each keeping its shard."""
     from repro_torch.launch.shardings import shard_params
@@ -177,7 +180,7 @@ def build_params(model, mesh, *, seed: int = 0, dtype=None, fold_model: bool = F
             full = model.init_params(seed)
             if dtype is not None:
                 full = tree_map(lambda t: t.to(dtype), full)
-            params = shard_params(full, mesh, mode="serve", fold_model=fold_model)
+            params = shard_params(full, mesh, mode=mode, fold_model=fold_model)
             del full
             if mesh.device.type == "cuda":
                 torch.cuda.synchronize(mesh.device)

@@ -24,6 +24,16 @@ tensors.
 ``shard_params`` every leaf of a param tree under ``logical_spec``.
 The rules read only ``mesh.shape`` (axis name → size), so a stub with a
 ``shape`` dict serves as the reference's tests' stubs do.
+
+For training: ``opt_state_sharding`` places the AdamW state as the
+reference's dry-run does (``m``, ``v`` and ``master`` as the params,
+``step`` replicated); ``split_axes`` gives the axes a spec splits a leaf
+over (the gradient norm sums a leaf's squares over them),
+``grad_reduce_axes`` the DP axes a leaf is replicated over (its gradient
+is summed over them after the backward), ``fsdp_plan`` the dims the
+forward gathers (those the train placement splits and the serving
+placement does not).  ``NamedSharding`` pairs a mesh with a spec, the
+placement a checkpoint is restored into.
 """
 from __future__ import annotations
 
@@ -34,7 +44,9 @@ import torch
 
 __all__ = [
     "param_sharding", "batch_spec", "decode_state_sharding", "logical_spec",
-    "shard_tensor", "shard_params", "tree_map_with_path", "spec_axes",
+    "shard_tensor", "shard_params", "tree_map_with_path", "spec_axes", "split_axes",
+    "grad_reduce_axes", "fsdp_plan", "opt_state_sharding", "NamedSharding", "spec_leaves",
+    "train_state_shardings",
 ]
 
 # leaf names (last path component up the tree) → role
@@ -243,3 +255,108 @@ def shard_params(params, mesh, *, mode: str = "serve", fold_model: bool = False)
         lambda names, x: shard_tensor(
             x, logical_spec(names, tuple(x.shape), mesh, mode=mode, fold_model=fold_model),
             mesh), params)
+
+
+# --------------------------------------------------------------- training
+def spec_leaves(specs) -> list:
+    """The specs of a tree of them (dicts of tuples) in JAX's leaf order
+    (``repro_torch.tree.leaves`` of the params they place): a spec is a
+    tuple, so it is a leaf here, not a container."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [specs]
+
+
+def split_axes(spec) -> tuple[str, ...]:
+    """Every mesh axis ``spec`` splits its leaf over, in dim order."""
+    return tuple(a for entry in spec for a in spec_axes(entry))
+
+
+def grad_reduce_axes(spec, mesh, *, fold_model: bool = False) -> tuple[str, ...]:
+    """The DP axes a leaf of ``spec`` is replicated over: the ranks along
+    them saw different rows, so its gradient is summed over them after the
+    backward.  Axes the spec splits need none: an FSDP leaf's gradient
+    comes out of the gather's reduce-scatter summed, an expert's from the
+    exchange."""
+    dp = _dp_axes(mesh) + (("model",) if fold_model and "model" in mesh.shape else ())
+    return tuple(a for a in dp if a not in split_axes(spec) and mesh.shape[a] > 1)
+
+
+def fsdp_plan(params, mesh, *, fold_model: bool = False):
+    """params (full shapes; meta tensors will do) → per leaf, the
+    ``(dim, axes)`` pairs its train placement splits and its serving
+    placement does not: the gathers that make a train shard the serving
+    shard the model code computes with.  A leaf the two placements split
+    alike (MoE experts over 'data', TP columns over 'model') has none."""
+    def plan(names, x):
+        shape = tuple(x.shape)
+        train = logical_spec(names, shape, mesh, mode="train", fold_model=fold_model)
+        serve = logical_spec(names, shape, mesh, mode="serve", fold_model=fold_model)
+        out = []
+        for dim, (t, s) in enumerate(zip(train, serve)):
+            if t != s:
+                if s is not None:
+                    raise ValueError(f"{'/'.join(names)}: train spec {train} does not extend "
+                                     f"serve spec {serve}")
+                out.append((dim, spec_axes(t)))
+        return tuple(out)
+
+    return tree_map_with_path(plan, params)
+
+
+def opt_state_sharding(param_specs, *, fp32_master: bool = True) -> dict:
+    """The AdamW state's specs (``optim.adamw`` layout) from the params':
+    the moments and the f32 master copy as the params, ``step``
+    replicated (``src/repro/launch/dryrun.py:107-111``)."""
+    out = {"step": (), "m": param_specs, "v": param_specs}
+    if fp32_master:
+        out["master"] = param_specs
+    return out
+
+
+def train_state_shardings(params, mesh, *, fold_model: bool = False,
+                          fp32_master: bool = True):
+    """(params, AdamW state) → the ``NamedSharding`` trees that place them
+    for training on ``mesh`` (``params``: full shapes; meta tensors will
+    do), the trees a checkpoint is saved from and restored into."""
+    def named(specs):
+        if isinstance(specs, dict):
+            return {k: named(v) for k, v in specs.items()}
+        return NamedSharding(mesh, specs)
+
+    p = param_sharding(params, mesh, mode="train", fold_model=fold_model)
+    return named(p), named(opt_state_sharding(p, fp32_master=fp32_master))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec: where each rank's slice of a full leaf lives."""
+
+    mesh: Any
+    spec: tuple
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        return shard_tensor(x, self.spec, self.mesh)
+
+    def whole_shape(self, shape) -> list[int]:
+        """The full shape of which ``shape`` is a rank's shard."""
+        out = list(shape)
+        for dim, entry in enumerate(self.spec):
+            for a in spec_axes(entry):
+                out[dim] *= self.mesh.shape[a]
+        return out
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole of this rank's shard ``x``: gathered over each split
+        dim's axes (row-major, as ``shard`` cut it) with the mesh's
+        collectives, on the CPU when its backend moves host memory.  Every
+        rank of the mesh calls it."""
+        from repro_torch.models import sharding
+
+        if getattr(self.mesh, "backend", None) == "gloo":
+            x = x.cpu()
+        with sharding.mesh_context(self.mesh):
+            for dim, entry in enumerate(self.spec):
+                if entry is not None:
+                    x = sharding.all_gather(x, spec_axes(entry), dim)
+        return x

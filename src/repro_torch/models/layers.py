@@ -11,7 +11,14 @@ dim and sums the partial products over 'model' (in f32, cast back once);
 ``swiglu`` runs on the local d_ff; ``embed`` looks up a vocab-sharded
 table (a masked local lookup, then a sum over 'model').  Whether a weight
 is sharded is read off its local shape against the full dim the caller
-names.  Without a mesh every one is the single-device function."""
+names.  Without a mesh every one is the single-device function.
+
+For training under a mesh (the convention of ``models.sharding``): the
+input of a column-parallel product goes through ``copy_to_model`` (its
+gradient summed over 'model'), ``row_dense``'s slice of a replicated
+input takes autograd's own backward (the gradient lands in this rank's
+columns, the other ranks' columns summed in by that copy upstream), and
+the embedding's sum over 'model' passes its gradient through whole."""
 from __future__ import annotations
 
 import itertools
@@ -23,7 +30,7 @@ from repro_torch.models import sharding
 PARAM_DTYPE = torch.bfloat16
 
 __all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "row_dense", "rmsnorm", "layernorm",
-           "swiglu", "gelu_mlp", "embed"]
+           "column_input", "swiglu", "gelu_mlp", "embed"]
 
 
 def normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
@@ -93,9 +100,19 @@ def layernorm(p, x, eps: float = 1e-5):
     return (h * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
+def column_input(x, w, d_out: int):
+    """``x`` as the input of a product with the column-parallel weight
+    ``w`` of full out dim ``d_out``: through ``copy_to_model`` when ``w``
+    holds only this rank's columns (else the product runs whole on every
+    rank and its input's gradient is whole already)."""
+    return sharding.copy_to_model(x) if w.shape[-1] < d_out else x
+
+
 def swiglu(p, x, d_ff: int | None = None):
     """``down(silu(gate(x)) * up(x))``; with ``d_ff`` (the full hidden
     width) the hidden may be this rank's columns and ``down`` row-parallel."""
+    if d_ff is not None:
+        x = column_input(x, p["gate"]["w"], d_ff)
     h = torch.nn.functional.silu(dense(p["gate"], x)) * dense(p["up"], x)
     return dense(p["down"], h) if d_ff is None else row_dense(p["down"], h, d_ff)
 
@@ -103,6 +120,8 @@ def swiglu(p, x, d_ff: int | None = None):
 def gelu_mlp(p, x, d_ff: int | None = None):
     """``down(gelu(up(x)))`` with the tanh form of GELU, which is
     ``jax.nn.gelu``'s default (the erf form differs by up to about 1e-3)."""
+    if d_ff is not None:
+        x = column_input(x, p["up"]["w"], d_ff)
     h = torch.nn.functional.gelu(dense(p["up"], x), approximate="tanh")
     return dense(p["down"], h) if d_ff is None else row_dense(p["down"], h, d_ff)
 

@@ -27,6 +27,19 @@ back; an f32 sum over 'model' when the FFN is tensor parallel
 FSDP there (the folded DP+EP deployment) or a TP shard too narrow to pay.
 Otherwise each rank runs its own experts on its tokens' buffers and the
 results are gathered over 'data'.
+
+Training (the gradient convention of ``models.sharding``): every
+exchange is differentiable (the all_to_alls' backward the inverse
+exchange, the gathered expert halves' a reduce-scatter, the TP sum's the
+identity).  Under tensor parallelism the model ranks hold the same
+buffers: the expert input goes through ``copy_to_model`` when the
+experts' d_ff is split over 'model', and where each model rank then runs
+the experts whole (the halves gathered) their output's gradient is shared
+among the model ranks, so that the reduce-scatter and that copy count it
+once.  Where a group spans ranks (its rows gathered) the aux loss is
+computed alike on every one of them, and its gradient is shared so too.
+The router's gradient is summed over the DP axes with the other
+replicated leaves (``launch.steps``).
 """
 from __future__ import annotations
 
@@ -107,11 +120,26 @@ def _expert_weights(p, ff: int):
     return gate, up, down, gate.shape[-1] < ff
 
 
+def _tp_output(y, psum: bool, tp_split: bool, dtype):
+    """The experts' output under TP: the model ranks' partial products
+    over their d_ff columns summed in f32 (``psum``), or, when every model
+    rank ran the gathered experts whole on the same buffers (``tp_split``
+    without ``psum``), the value they computed alike, its gradient shared."""
+    if psum:
+        return sharding.all_reduce(y.float(), "model").to(dtype)
+    return sharding.share_grad(y, "model") if tp_split else y
+
+
 def _expert_ffn(buf, p, g, e_pad, cap, d, ff, batch_axes=()):
     """Per-expert SwiGLU over the buffers of this rank's groups: [g_l, E*C,
     d] -> the same.  ``g`` counts the groups of the whole batch, split over
     ``batch_axes`` (a prefix of the DP axes) into this rank's ``g_l``."""
     g_l = buf.shape[0]
+    # the experts' d_ff split over TP ranks that hold the same buffers: the
+    # buffers are a column-parallel product's input
+    tp_split = sharding.tp_size() > 1 and p["gate"].shape[-1] < ff
+    if tp_split:
+        buf = sharding.copy_to_model(buf)
     gate, up, down, psum = _expert_weights(p, ff)
     dsize = sharding.axis_size("data")
     if sharding.get_mesh() is None or g % sharding.dp_size() or e_pad % dsize or dsize == 1:
@@ -121,9 +149,8 @@ def _expert_ffn(buf, p, g, e_pad, cap, d, ff, batch_axes=()):
         e_loc = gate.shape[0]
         lo = sharding.axis_index("data") * e_loc if e_loc < e_pad else 0
         xe = buf.reshape(g_l, e_pad, cap, d).transpose(0, 1)[lo:lo + e_loc]
-        ye = _ffn_local(xe.reshape(e_loc, g_l * cap, d), gate, up, down)
-        if psum:
-            ye = sharding.all_reduce(ye.float(), "model").to(buf.dtype)
+        ye = _tp_output(_ffn_local(xe.reshape(e_loc, g_l * cap, d), gate, up, down), psum,
+                        tp_split, buf.dtype)
         if e_loc < e_pad:
             ye = sharding.all_gather(ye, "data", 0)
         return ye.reshape(e_pad, g_l, cap, d).transpose(0, 1).reshape(g_l, e_pad * cap, d)
@@ -136,9 +163,7 @@ def _expert_ffn(buf, p, g, e_pad, cap, d, ff, batch_axes=()):
     y = sharding.all_to_all(mine, "data", split_dim=1, concat_dim=0)
     rows = y.shape[0]
     y = y.reshape(rows, e_loc, cap, d).transpose(0, 1).reshape(e_loc, rows * cap, d)
-    out = _ffn_local(y, gate, up, down)
-    if psum:  # down-proj contracted a TP shard of ff: combine
-        out = sharding.all_reduce(out.float(), "model").to(buf.dtype)
+    out = _tp_output(_ffn_local(y, gate, up, down), psum, tp_split, buf.dtype)
     out = out.reshape(e_loc, rows, cap, d).transpose(0, 1).reshape(rows, e_loc * cap, d)
     out = sharding.all_to_all(out, "data", split_dim=0, concat_dim=1)
     return sharding.all_gather(out, rest, 0)
@@ -184,6 +209,7 @@ def moe_apply(p, x: torch.Tensor, cfg, *, group_size_pref: int = 512, batch_axes
     aux = (e / max(k, 1)) * torch.mean(torch.sum(me * ce, dim=-1))
     if split > 1:
         aux = sharding.all_reduce(aux, batch_axes) / split
+    aux = sharding.share_grad(aux, spread)
     return sharding.take_shard(out, spread, 0), aux
 
 

@@ -42,9 +42,14 @@ the rank's kv groups or batch rows, into the decode state's layout
 'model' when it divides, else whole) with one all_to_all over 'model'
 (an all_gather when the pages stay whole); the state's ``layout`` says
 which, and the decode step runs the sequence-parallel branch of
-``paged_decode_with_write`` on it.  The SSM, hybrid and sliding-window
-families and image prompts refuse a 'model' axis of more than one rank,
-and ``models.whisper`` any mesh (ROADMAP.md, queue 1).
+``paged_decode_with_write`` on it.  ``train_loss`` under a mesh runs the
+reference's ``mode="train"`` placements: FSDP over 'data' (each layer
+group's shards gathered inside its remat region), TP over 'model', the
+vocab-sharded loss, the mean over the global batch (the gradient
+convention of ``models.sharding``).  The SSM, hybrid and sliding-window
+families and image prompts refuse a 'model' axis of more than one rank
+(the SSM family trains under FSDP at 'model' = 1), and
+``models.whisper`` any mesh (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ from repro_torch.models.attention import KVPages, identity_slice, paged_decode_w
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
-    PARAM_DTYPE, dense, dense_init, embed, gelu_mlp, normal_, rmsnorm, row_dense, swiglu)
+    PARAM_DTYPE, column_input, dense, dense_init, embed, gelu_mlp, normal_, rmsnorm, row_dense,
+    swiglu)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.sharding import MeshLayout
 from repro_torch.models.ssm import ssm_prefill, ssm_state_shapes, ssm_step
@@ -120,14 +126,31 @@ def paged_kv(k: torch.Tensor, v: torch.Tensor, block_size: int, margin: int):
             v_pages.reshape(L, b, per_seq, block_size, g, hd), tables[None, :].repeat(b, 1))
 
 
-def sharded_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int) -> torch.Tensor:
+def sharded_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                full: int | None = None) -> torch.Tensor:
     """Per-position cross-entropy over the real vocabulary (the padded
-    logits masked to -inf): logsumexp − the label's logit, the value of the
-    reference's ``_sharded_nll`` (one device: no vocab axis to keep
-    sharded, so the label's logit is a gather)."""
-    valid = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
-    lse = torch.logsumexp(logits.masked_fill(~valid, float("-inf")), dim=-1)
-    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    logits masked to -inf): logsumexp − the label's logit, the reference's
+    ``_sharded_nll``.  ``full``: the logits' full width (the padded
+    vocabulary); when ``logits`` hold fewer columns they are this rank's
+    vocab columns over 'model', and the reference's one-hot select keeps
+    the vocab axis sharded: the global column index is this rank's offset
+    plus the local one, the padded columns are masked by it, and the local
+    max (all-reduced with ``max``, no gradient), the local sum of
+    exponentials and the label's logit (both all-reduced with ``sum``)
+    give every rank the whole row's value.  One device: the label's logit
+    is a gather."""
+    n = logits.shape[-1]
+    if full is None or n == full:
+        valid = torch.arange(n, device=logits.device) < vocab_size
+        lse = torch.logsumexp(logits.masked_fill(~valid, float("-inf")), dim=-1)
+        return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    lo = sharding.axis_index("model") * n
+    cols = torch.arange(lo, lo + n, device=logits.device)
+    masked = logits.masked_fill(cols >= vocab_size, float("-inf"))
+    m = sharding.all_reduce(masked.amax(dim=-1), "model", "max")
+    sumexp = sharding.all_reduce(torch.exp(masked - m[..., None]).sum(-1), "model")
+    label = torch.where(cols == labels[..., None].long(), logits, 0.0).sum(-1)
+    return torch.log(sumexp) + m - sharding.all_reduce(label, "model")
 
 
 _REFUSED = "under a 'model' axis of more than one rank (ROADMAP.md, queue 1, item 3)"
@@ -137,6 +160,18 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _fsdp_gather(tree, plan, shift: int = 0):
+    """Each leaf of ``tree`` gathered along the (dim, axes) pairs of its
+    entry in ``plan`` (``launch.shardings.fsdp_plan``): its train shard
+    made its serving shard.  ``shift``: how many leading dims the leaves
+    have lost against the plan's (1 for one layer of the stack)."""
+    if isinstance(tree, dict):
+        return {k: _fsdp_gather(v, plan[k], shift) for k, v in tree.items()}
+    for dim, axes in plan:
+        tree = sharding.all_gather(tree, axes, dim - shift)
+    return tree
 
 
 class DecoderLM:
@@ -152,6 +187,7 @@ class DecoderLM:
             raise ValueError("num_layers must divide by moe_every")
         self.n_steps = cfg.num_layers // self.group
         self.device = resolve_device(device)
+        self._fsdp_plans: dict = {}   # (mesh shape, fold) -> fsdp_plan
 
     def _sub_kind(self, i: int) -> str:
         """FFN kind of sub-layer i within a group: MoE is the LAST of each
@@ -175,10 +211,12 @@ class DecoderLM:
         (default: the model's), with the reference's keys, layout, scales
         and dtypes (bf16; the SSM's ``a_log``, ``dt_bias`` and ``d_skip``
         in f32).  The numbers differ from the JAX init's: the tests carry
-        JAX weights over with ``bridge.params_from_jax`` instead."""
+        JAX weights over with ``bridge.params_from_jax`` instead.
+        ``device="meta"``: the shapes and dtypes alone (``param_shapes``)."""
         cfg = self.cfg
-        dev = self.device if device is None else resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        dev = self.device if device is None else \
+            torch.device("meta") if str(device) == "meta" else resolve_device(device)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
         d = cfg.d_model
         if self.group == 1:
             layers = self._init_sub(gen, dev, self._sub_kind(0))
@@ -198,6 +236,26 @@ class DecoderLM:
             params["meta"] = normal_(torch.empty((cfg.num_meta_tokens, d), dtype=PARAM_DTYPE,
                                                  device=dev), gen, 0.02)
         return params
+
+    def param_shapes(self) -> dict:
+        """The params as meta tensors: the full shapes and dtypes, no
+        storage (the reference's ``jax.eval_shape`` of ``init_params``)."""
+        return self.init_params(device="meta")
+
+    def _fsdp_plan(self):
+        """Under a mesh, the FSDP gathers of every leaf of the train
+        placements (``launch.shardings.fsdp_plan``), made once a mesh shape;
+        None without a mesh."""
+        mesh = sharding.get_mesh()
+        if mesh is None:
+            return None
+        from repro_torch.launch.shardings import fsdp_plan
+
+        key = (tuple(mesh.shape.items()), sharding.tp_folded())
+        if key not in self._fsdp_plans:
+            self._fsdp_plans[key] = fsdp_plan(self.param_shapes(), mesh,
+                                              fold_model=sharding.tp_folded())
+        return self._fsdp_plans[key]
 
     def _init_sub(self, gen, dev, ffn_kind: str) -> dict:
         """One sub-layer's params, stacked over the ``n_steps`` groups."""
@@ -322,8 +380,9 @@ class DecoderLM:
 
     def _logits(self, params, x):
         """x @ table.T: this rank's vocab columns when the table is
-        vocab-sharded."""
+        vocab-sharded (its input then a column-parallel product's)."""
         table = params.get("lm_head", params["embed"])["table"]
+        x = column_input(x, table.T, self.cfg.padded_vocab)
         return x @ table.T.to(x.dtype)
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -338,7 +397,8 @@ class DecoderLM:
         cfg = self.cfg
         outs, caches = {}, {}
         if cfg.has_attention:
-            h = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+            h = column_input(rmsnorm(p["attn_norm"], x, cfg.norm_eps), p["attn"]["q"]["w"],
+                             cfg.attn_dim)
             b, s, _ = h.shape
             q = rope(self._heads(p["attn"]["q"], h, cfg.num_heads), positions, cfg.rope_theta)
             k = rope(self._heads(p["attn"]["k"], h, cfg.num_kv_heads), positions,
@@ -381,44 +441,76 @@ class DecoderLM:
         return x, offset
 
     # ------------------------------------------------------------ train
-    def _group_train(self, p, x, positions):
+    def _group_train(self, p, x, positions, plan=None, batch_axes=()):
         """One layer group of the training forward -> (x, the group's summed
-        MoE load-balance loss, f32)."""
+        MoE load-balance loss, f32).  Under a mesh ``p`` holds the group's
+        train shards, gathered here over their FSDP axes (``plan``): inside
+        the remat region, so that the gathered weights are freed after the
+        group and gathered again in the backward."""
+        if plan is not None:
+            p = _fsdp_gather(p, plan, shift=1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(self.group):
             x, _, a = self._sub_full(p if self.group == 1 else p[f"sub{i}"], x, positions,
-                                     self._sub_kind(i), return_kv=False)
+                                     self._sub_kind(i), return_kv=False, batch_axes=batch_axes)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    def train_loss(self, params, batch, *, remat: bool = True):
+    def train_loss(self, params, batch, *, remat: bool = True, batch_axes: tuple[str, ...] = ()):
         """batch: tokens [b, s] (+ optional vision_embeds) -> (loss, {"nll",
         "aux"}): the mean next-token cross-entropy over the text positions
         (after a VLM's image tokens and any meta prefix), plus 0.01 × the
         mean MoE load-balance loss for MoE configs.  ``remat`` recomputes
         each layer group's forward in the backward instead of keeping its
-        activations (so the flash_prefill kernel runs twice a layer)."""
+        activations (so the flash_prefill kernel runs twice a layer).
+
+        Under a mesh (``models.sharding``): ``params`` are this rank's train
+        shards (``launch.shardings.shard_params(..., mode="train")``), each
+        layer group's FSDP leaves gathered inside its remat region, the
+        embedding, lm head and final norm by their own placements; the batch
+        holds this rank's rows, split over ``batch_axes`` (``batch_spec``);
+        the loss is the mean over the GLOBAL batch, the same scalar on every
+        rank, its gradient shared among the ranks of the DP axes the batch
+        is not split over (they compute it alike)."""
         cfg = self.cfg
+        self._check_mesh(vision=batch.get("vision_embeds") is not None)
+        plan = self._fsdp_plan()
+
+        def top(name):
+            if plan is None or name not in params:
+                return params.get(name)
+            return _fsdp_gather(params[name], plan[name])
+
         tokens = self._tokens(batch["tokens"])
-        x, offset = self._embed_inputs(params, tokens, batch.get("vision_embeds"))
+        x, offset = self._embed_inputs({"embed": top("embed"), "meta": top("meta")}, tokens,
+                                       batch.get("vision_embeds"))
         b, s_total = x.shape[:2]
         positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        layer_plan = None if plan is None else plan["layers"]
         for step in range(self.n_steps):
             p = _layer(params["layers"], step)
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
-                    self._group_train, p, x, positions, use_reentrant=False)
+                    self._group_train, p, x, positions, layer_plan, batch_axes,
+                    use_reentrant=False)
             else:
-                x, a = self._group_train(p, x, positions)
+                x, a = self._group_train(p, x, positions, layer_plan, batch_axes)
             aux = aux + a
         aux = aux / cfg.num_layers
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, offset:]
-        logits = self._logits(params, x[:, :-1]).float()
-        nll = sharded_nll(logits, tokens[:, 1:], cfg.vocab_size).mean()
+        x = rmsnorm(top("final_norm"), x, cfg.norm_eps)[:, offset:]
+        head = "lm_head" if "lm_head" in params else "embed"
+        logits = self._logits({"embed": top(head)}, x[:, :-1]).float()
+        nll = sharded_nll(logits, tokens[:, 1:], cfg.vocab_size, cfg.padded_vocab)
+        split = sharding.axis_size(batch_axes)
+        if split == 1:
+            nll = nll.mean()
+        else:
+            nll = sharding.all_reduce(nll.sum(), batch_axes) / (nll.numel() * split)
         loss = nll + 0.01 * aux if cfg.family == "moe" else nll
-        return loss, {"nll": nll, "aux": aux}
+        rest = tuple(a for a in sharding.dp_axes() if a not in batch_axes)
+        return sharding.share_grad(loss, rest), {"nll": nll, "aux": aux}
 
     # ---------------------------------------------------------- prefill
     def prefill(self, params, batch, *, max_blocks_margin: int = 16, remat: bool = True,

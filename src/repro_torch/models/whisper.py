@@ -188,10 +188,14 @@ class EncDecLM:
         return x @ params["embed"]["table"].T.to(x.dtype)
 
     # ------------------------------------------------------------- train
-    def train_loss(self, params, batch, *, remat: bool = True):
+    def train_loss(self, params, batch, *, remat: bool = True, batch_axes: tuple[str, ...] = ()):
         """batch: frames [b, enc_seq, d], tokens [b, s] -> (loss, {"nll"}):
-        the decoder's mean next-token cross-entropy."""
+        the decoder's mean next-token cross-entropy.  ``batch_axes`` is
+        accepted for call compatibility (no mesh trains an encoder-decoder
+        yet)."""
+        del batch_axes
         cfg = self.cfg
+        self._check_mesh()
         enc_out = self.encode(params, batch["frames"])
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         x, _ = self._decoder(params, tokens, enc_out, return_kv=False, remat=remat)

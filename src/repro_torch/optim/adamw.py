@@ -15,6 +15,13 @@ most of one card, so a second copy of the moments cannot exist even for
 a moment; each leaf is updated in slices of ``CHUNK`` elements, which
 bounds the f32 temporaries (an elementwise update does not depend on the
 slicing).
+
+Under a device mesh the params, moments and master copy are this rank's
+shards (placed alike: ``launch.shardings.opt_state_sharding``) and the
+update runs on them in place; only the clip needs the whole: the global
+norm sums each leaf's f32 squares over the mesh axes its spec splits it
+on (one all-reduce an axis for all leaves), counting a replicated copy
+once.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "global_norm"]
@@ -55,13 +63,24 @@ def _slices(t: torch.Tensor):
     return t.view(-1).split(CHUNK)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, split=None) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX's order) of each leaf's f32 sum of
-    squares."""
-    total = None
-    for x in leaves(tree):
-        sq = sum(torch.sum(torch.square(c.float())) for c in _slices(x.contiguous()))
-        total = sq if total is None else total + sq
+    squares.  ``split``: under a mesh, for each leaf (JAX's order) the mesh
+    axes its spec splits it over (``launch.shardings.split_axes``): each
+    leaf's squares are summed over those axes (the mesh context's
+    collectives), a replicated leaf counted once."""
+    sq = [sum(torch.sum(torch.square(c.float())) for c in _slices(x.contiguous()))
+          for x in leaves(tree)]
+    if split is not None and sharding.get_mesh() is not None:
+        v = torch.stack(sq)
+        for axis in sharding.get_mesh().axis_names:
+            mask = torch.tensor([axis in a for a in split], device=v.device)
+            if mask.any() and sharding.axis_size(axis) > 1:
+                v = torch.where(mask, sharding.all_reduce(torch.where(mask, v, 0.0), axis), v)
+        sq = list(v.unbind(0))
+    total = sq[0]
+    for x in sq[1:]:
+        total = total + x
     return torch.sqrt(total)
 
 
@@ -79,13 +98,14 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, split=None):
     """One step -> (params, state, {"grad_norm", "lr"}); params and state
-    are updated in place (see the module's docstring)."""
+    are updated in place (see the module's docstring).  ``split``: under a
+    mesh, each leaf's split axes (``global_norm``)."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, split)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     b1c = 1.0 - cfg.b1 ** step.float()
