@@ -91,10 +91,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    free each model before the next is built.
 14. Serving under a ("data", "model") device mesh of 4 ranks spawned with
    ``torch.multiprocessing`` (gloo over the one card; nccl where each rank
-   has a card, ``--phase 14`` alone): Yi-9B at its full config tensor
+   has a card, ``--phase 14`` alone): Yi-9B at full width cut to 16
+   layers (all 48 until phase 16 joined the script) tensor
    parallel over (1, 4) on 3 x 1024 tokens (the pages split over 'model':
    the sequence-parallel paged_attention combine, a full, a partial and
-   an empty slice) and 3 x 96 (pages whole), granite-moe-3b-a800m folded
+   an empty slice) and 3 x 96 (pages whole), granite-moe-3b-a800m cut to 8
+   layers (32 before) folded
    over (2, 2) (experts over 'data', all_to_all both ways, the FSDP
    expert shards gathered), then both at full width cut in depth in f32;
    each against a single-card run of the same seed and prompts, logits
@@ -107,19 +109,47 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    mamba2-780m over (4, 1), each at full width cut to 2 layers in f32, one
    step under the mesh against the same step on one card (computed in
    every rank in turn): loss 1e-5, gradient norm 1e-4 relative, every
-   gradient shard and updated param shard 1e-4 in ||err|| / ||ref||.  Then
+   gradient shard and updated param shard 1e-4 in ||err|| / ||ref|| (the
+   param elements whose gradient lies within 100 x AdamW's eps, where its
+   step g / (|g| + eps) is steep, held instead to p + lr x step equal on
+   both sides, 1e-4).  Then
    bf16, 3 steps each: Yi-9B cut to 4 layers over (2, 2) at 2 x 2048,
-   granite cut to 4 layers folded over (2, 2) at 4 x 512, mamba2 at its
-   full config over (4, 1) at 4 x 2048: losses finite, flash_prefill
+   granite cut to 4 layers folded over (2, 2) at 4 x 512, mamba2 at full
+   width cut to 16 layers (all 48 until phase 16 joined the script) over
+   (4, 1) at 4 x 2048: losses finite, flash_prefill
    (ssd_scan for mamba2) exactly layers x steps x 2 on every rank, every
    step's collectives by direction and kind equal, in count and bytes, to
-   those ``predict_train_collectives`` enumerates from the placements.
+   the dry-run's (``repro_torch.launch.dryrun``: the same step of the
+   same config, mesh and batch on meta tensors under a count-only view of
+   the mesh, counted on the CPU for each rank after its runs).
    Last, Yi's f32 cut through ``launch.train.run_rank`` over (2, 2), 3
    steps with a checkpoint of the global leaves at step 2: a ``--resume``
    repeats step 3's loss bit for bit, and the checkpoint restored under
    (1, 4) gathers to the one-card restore's leaves bit for bit.  Step
    times, tokens a second, peak memory per rank and the collectives
    beside the card's name and power limit.
+16. The SSM, hybrid, encoder-decoder and VLM families under a mesh of the
+   same 4 spawned ranks (``--phase 16`` alone, as 14).  Serving over (1, 4)
+   at the full configs in bf16 against one card under the margin rule:
+   mamba2-780m (3 x 130 tokens; 12 SSD heads a rank), hymba-1.5b (1200
+   tokens, past its window: the ring wraps; its 50 SSD heads split by
+   head_dim, 16 channels a rank), whisper-large-v3 (1500 seeded frames, 2 x
+   100 decoder tokens: 5 heads a rank, the pages split, the
+   sequence-parallel paged_attention combine), llava-next-mistral-7b
+   (2880 seeded image embeddings + 96 tokens, 8 heads a rank); then each
+   at full width cut to 4 layers in f32, mamba2 whole (every compared token
+   equal).  mamba2's bf16 logits, on the prompts of two seeds, are held to
+   twice the one card's own bf16 rounding (its bf16 logits against its f32
+   run's), the others to phase 14's limit.
+   Each rank's launches exact, each rank's collectives of the prefill and
+   of a decode step equal to the dry-run's.  Training over (2, 2), each
+   arch cut in depth: the f32 2-layer step against one card (loss 1e-5,
+   gradient norm 1e-4 relative, every gradient and updated param shard
+   1e-4 in ||err|| / ||ref||, as phase 15) and 3 bf16 steps of the 4-layer cut at 2 x
+   1024 (losses finite, launches exact, every step's collectives equal to
+   the dry-run's).  Phase 2 holds the kernels at these rank-local shapes
+   against their plain versions, and phase 5 times them.  Phases 14 and
+   15 hold their collectives against the dry-run's in the same way.
 11. Training: granite-moe-3b-a800m at its full config (every layer and
    expert) through ``launch.train``, batch 4 x 512, 6 steps, the losses
    finite and falling; then, at its full width cut to 4 layers (the full
@@ -243,6 +273,7 @@ MESH_RANKS = 4                     # phase 14's ranks (one card: gloo)
 MESH_YI_BATCHES = ((3, 1024), (3, 96))   # (batch, tokens): 48 pages (12 a rank), then 19
 MESH_GRANITE_BATCH = (4, 128)      # 512 tokens: 4 groups of 128, one a rank
 MESH_F32_LAYERS = {"yi-9b": 8, "granite-moe-3b-a800m": 4}   # the f32 runs' depth cuts
+MESH_BF16_LAYERS = {"yi-9b": 16, "granite-moe-3b-a800m": 8}  # the bf16 runs' depth cuts
 # logits of a mesh run against the single card's, first step: in bf16 two
 # computations of other shapes round at other places and random weights
 # amplify it over the layers (about 0.14 at Yi's 48, 0.06 at granite's 32,
@@ -254,7 +285,7 @@ MESH_TIMEOUT = 900.0
 MTRAIN_RUNS = [
     ("yi-9b x4", "yi-9b", 4, (2, 2), 2, 2048),
     ("granite-moe-3b-a800m x4", "granite-moe-3b-a800m", 4, (2, 2), 4, 512),
-    ("mamba2-780m", "mamba2-780m", None, (4, 1), 4, 2048),
+    ("mamba2-780m x16", "mamba2-780m", 16, (4, 1), 4, 2048),
 ]
 MTRAIN_STEPS = 3
 MTRAIN_F32_LAYERS = 2              # the f32 cuts held against one card
@@ -264,8 +295,33 @@ MTRAIN_LOSS_RTOL = 1e-5            # mesh step vs one card, f32
 MTRAIN_GNORM_RTOL = 1e-4
 MTRAIN_GRAD_REL = 1e-4             # each gradient shard, ||err|| / ||ref||
 MTRAIN_PARAM_REL = 1e-4            # each updated param shard, ||err|| / ||ref||
+# an element whose clipped reference gradient lies within MTRAIN_AT_EPS x AdamW's
+# eps: there the step g / (|g| + eps) is steep in g, and turns the gradient's
+# rounding into moves of a good share of lr (whisper's zero-init biases hold a
+# few such elements beside others 1e4 eps up), so its updated param is held to
+# each side's own step instead (``_f32_vs_one_card``)
+MTRAIN_AT_EPS = 100
 MTRAIN_CKPT = ((2, 2), (1, 4))     # the Yi f32 cut's checkpoint: saved under, restored under
 MTRAIN_CKPT_BATCH = (2, 512)
+# phase 16: arch -> (batch, tokens) of the bf16 serving runs over (1, 4): mamba2's
+# 12 SSD heads a rank; hymba past its 1024 window (1328 with the meta tokens); whisper's
+# 100 decoder tokens over 1500 frames (20 pages: 5 a rank, the sequence-parallel combine,
+# 5 heads a rank); llava's 2880 image tokens + 96 (8 heads a rank)
+M16_SERVE = {"mamba2-780m": (3, 130), "hymba-1.5b": (1, 1200),
+             "whisper-large-v3": (2, 100), "llava-next-mistral-7b": (1, 96)}
+M16_F32_LAYERS = 4                 # the f32 serving cuts (whisper's encoder too)
+# phase 16's bf16 logits against one card: hymba, whisper and llava at phase 14's
+# MESH_LOGIT_TOL["bfloat16"].  mamba2's 48 SSM layers amplify bf16 rounding further
+# (0.2598 on its first run): its limit is M16_ROUNDING times the one card's own bf16
+# rounding on the same weights and prompts (the one card's bf16 first-step logits
+# against its f32 run's), over the prompts of M16_MAMBA2_SEEDS; its f32 run is the
+# full depth at MESH_LOGIT_TOL["float32"], the witness that no tensor-parallel fault
+# grows with depth.  Two bf16 runs that round in other places differ by about the
+# square root of two times either's own rounding
+M16_ROUNDING = 2.0
+M16_MAMBA2_SEEDS = (16, 17)
+M16_TRAIN_F32 = [(a, (2, 2), 2, 256) for a in M16_SERVE]   # (arch, mesh, batch, tokens)
+M16_TRAIN = [(f"{a} x4", a, 4, (2, 2), 2, 1024) for a in M16_SERVE]   # bf16, 3 steps
 
 
 def log(msg: str) -> None:
@@ -475,6 +531,84 @@ def check_paged_lse(gen, dev):
     log(f"phase 2: paged_attention's lse (f32 [b, h]) against the plain version: max |err| "
         f"{worst:.3e}")
     return worst
+
+
+def check_rank_local(gen, dev):
+    """The kernels at phase 16's rank-local shapes against their plain
+    versions: ssd_scan at mamba2's 12 SSD heads a rank (1, 4) and 24 (2, 2),
+    hymba's 50 heads by a 16-wide head_dim slice (1, 4) and 25 whole heads
+    (2, 2), f32; flash_prefill at whisper's 5 heads a rank (the encoder,
+    the cross-attention of the prompt and of a decode step over 1500 keys,
+    the decoder's causal prompt) and 10 (training), llava's 2976 tokens on
+    8 heads a rank (2 kv groups) and its training length on 16, bf16; and
+    paged_attention with lse on whisper's 5-head slice of 5 pages (a full
+    slice, a partial one, an empty one), f32 and bf16.  Returns the max
+    |err| by kernel."""
+    import torch
+
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import dense_ref
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    errs = {"ssd_scan": 0.0, "flash_prefill": 0.0, "paged_attention": 0.0}
+    w = WHISPER
+    for b, s, nh, hd, ns, what in (
+            (3, M16_SERVE["mamba2-780m"][1], 12, 64, 128, "mamba2, 12 heads a rank"),
+            (3, 1, 12, 64, 128, "mamba2, 12 heads a rank, one row"),
+            (1, 1024, 24, 64, 128, "mamba2 training, 24 heads a rank"),
+            (1, M16_SERVE["hymba-1.5b"][1] + HYMBA["meta"], 50, 16, 16,
+             "hymba, 50 heads x 16 of head_dim a rank"),
+            (1, 1024 + HYMBA["meta"], 25, 64, 16, "hymba training, 25 heads a rank")):
+        x, dt, a, B, C, d_skip = ssd_inputs(gen, dev, b, s, nh, hd, ns)
+        y, st = ssd_scan(x, dt, a, B, C, d_skip)
+        ry, rst = ssd_scan_ref(x, dt, a, B, C, d_skip)
+        torch.cuda.synchronize()
+        tag = f"ssd_scan {what}: b={b} s={s} nh={nh} hd={hd} ns={ns} f32"
+        errs["ssd_scan"] = max(errs["ssd_scan"], close(y, ry, SSD_TOL["float32"], tag),
+                               close(st, rst, SSD_TOL["float32"], tag + " state"))
+    bf = torch.bfloat16
+    t = w["frames"]
+    n = M16_SERVE["whisper-large-v3"][1]
+    for s, tk, h, g, d, causal, what, rel in (
+            (t, t, 5, 5, w["d"], False, "whisper encoder, 5 heads a rank", None),
+            (n, t, 5, 5, w["d"], False, "whisper prompt cross-attention, 5 heads", None),
+            (1, t, 5, 5, w["d"], False, "whisper decode cross-attention, 5 heads", None),
+            (n, n, 5, 5, w["d"], True, "whisper decoder prompt, 5 heads", None),
+            (t, t, 10, 10, w["d"], False, "whisper encoder training, 10 heads", None),
+            (LLAVA["vision"] + M16_SERVE["llava-next-mistral-7b"][1], None, 8, 2, LLAVA["d"],
+             True, "llava image + text, 8 heads a rank", REL_NORM_BF16),
+            (LLAVA["vision"] + 1024, None, 16, 4, LLAVA["d"], True,
+             "llava training, 16 heads a rank", REL_NORM_BF16)):
+        tk = s if tk is None else tk
+        q = torch.randn(1, s, h, d, generator=gen, device=dev).to(bf)
+        k = torch.randn(1, tk, g, d, generator=gen, device=dev).to(bf)
+        v = torch.randn(1, tk, g, d, generator=gen, device=dev).to(bf)
+        out = flash_prefill(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        errs["flash_prefill"] = max(errs["flash_prefill"], close(
+            out, dense_ref(q, k, v, causal=causal), TOL["bfloat16"],
+            f"flash_prefill {what}: s={s} t={tk} h={h} g={g} d={d} bf16", rel))
+    per, bs = 5, 32
+    for ctx_list in ([n + MAX_NEW, 0], [per * bs, 37]):
+        for dtype in (torch.float32, bf):
+            name = str(dtype).split(".")[1]
+            q = torch.randn(2, 5, w["d"], generator=gen, device=dev).to(dtype)
+            kp = torch.randn(2, per, bs, 5, w["d"], generator=gen, device=dev).to(dtype)
+            vp = torch.randn(2, per, bs, 5, w["d"], generator=gen, device=dev).to(dtype)
+            tables = torch.arange(per, dtype=torch.int32, device=dev)[None].repeat(2, 1)
+            ctx = torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+            out, lse = paged_attention(q, kp, vp, tables, ctx, return_lse=True)
+            ref, ref_lse = paged_attention_ref(q, kp, vp, tables, ctx, return_lse=True)
+            torch.cuda.synchronize()
+            tag = f"paged_attention lse whisper's 5-head slice, {per} pages, ctx {ctx_list} {name}"
+            errs["paged_attention"] = max(errs["paged_attention"], close(out, ref, TOL[name], tag),
+                                          close_lse(lse, ref_lse, TOL[name], tag))
+    log(f"phase 2: the kernels at phase 16's rank-local shapes match their plain versions: "
+        f"max |err| {errs}")
+    return errs
 
 
 def sm_count(dev):
@@ -933,6 +1067,7 @@ def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "ph
         serve.main(serve_args + (["--quantize-transfer"] if quantized else []))
         torch.cuda.synchronize()
         log(f"{t_serve}: {path} {arch}, 3 requests in {time.perf_counter() - t0:.1f}s")
+        free_model()   # the launcher's own weights and service (reference cycles) go now
         serve_counts[quantized] = expect_launches(
             f"{t_serve}: {path}", read_counts(), n_layers, 3, 3 * MAX_NEW, quantized)
 
@@ -1020,6 +1155,9 @@ def phase_topology(model, params):
     from repro_torch.launch.steps import greedy_generate
 
     cfg = model.cfg
+    free_model()
+    log(f"phase 3b: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before the "
+        f"launcher builds its own weights")
     rng = np.random.default_rng(0)  # the launcher's prompts, drawn the same way
     shared = rng.integers(0, cfg.vocab_size, 0).astype(np.int32)
     prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 96).astype(np.int32)])
@@ -1938,9 +2076,11 @@ def phase_examples():
 # ----------------------------------------------------------- phase 14
 def greedy_run(model, params, tokens, n, mesh=None):
     """Prefill + ``n`` greedy serve steps through ``launch.steps`` (under
-    ``mesh`` when given) -> (each step's logits [b, V] f32 on the host,
-    gathered whole under a mesh; each step's tokens [b]; one decode step's
-    collectives by kind; the state's layout; the prefill's and the median
+    ``mesh`` when given) of ``tokens`` [b, s] (or a batch dict with a VLM's
+    image embeddings or an encoder-decoder's frames) -> (each step's logits
+    [b, V] f32 on the host, gathered whole under a mesh; each step's tokens
+    [b]; the collectives by kind of the prefill and of one decode step,
+    {"prefill", "decode"}; the state's layout; the prefill's and the median
     decode step's seconds, host clock ending in a token read)."""
     import torch
 
@@ -1959,18 +2099,20 @@ def greedy_run(model, params, tokens, n, mesh=None):
         setattr(model, fn, spy)
     try:
         prefill, serve = make_prefill_step(model, mesh=mesh), make_serve_step(model, mesh=mesh)
+        batch = tokens if isinstance(tokens, dict) else {"tokens": torch.as_tensor(tokens)}
+        sharding.COUNTER.reset()
         t0 = time.perf_counter()
-        tok, state = prefill(params, {"tokens": torch.as_tensor(tokens)})
+        tok, state = prefill(params, batch)
         toks = [tok.cpu()]
         times = {"prefill_s": time.perf_counter() - t0}
-        step, step_s = None, []
+        step, step_s = {"prefill": sharding.COUNTER.summary()}, []
         for _ in range(n):
             sharding.COUNTER.reset()
             t0 = time.perf_counter()
             tok, state = serve(params, state, tok)
             toks.append(tok.cpu())
             step_s.append(time.perf_counter() - t0)
-            step = sharding.COUNTER.summary()
+            step["decode"] = sharding.COUNTER.summary()
         times["step_s"] = sorted(step_s)[len(step_s) // 2]
     finally:
         del model.prefill, model.decode_step
@@ -1980,7 +2122,7 @@ def greedy_run(model, params, tokens, n, mesh=None):
     else:
         cfg = model.cfg
         with sharding.mesh_context(mesh, fold_model_axis=cfg.fold_model_axis_into_dp):
-            spec = batch_spec(mesh, len(tokens), fold_model=cfg.fold_model_axis_into_dp)
+            spec = batch_spec(mesh, len(batch["tokens"]), fold_model=cfg.fold_model_axis_into_dp)
             for i, lg in enumerate(seen):
                 if lg.shape[-1] < cfg.padded_vocab:
                     lg = sharding.all_gather(lg, "model", 1)
@@ -2020,19 +2162,24 @@ def mesh_runs_spec(seed=14):
     from repro_torch.configs import get_config
 
     rng = np.random.default_rng(seed)
-    yi = get_config("yi-9b")
-    granite = get_config("granite-moe-3b-a800m")
+    full_yi = get_config("yi-9b")
+    full_granite = get_config("granite-moe-3b-a800m")
+    # the bf16 runs at full width cut in depth (MESH_BF16_LAYERS), for the
+    # script's time once phase 16 joined
+    yi = dataclasses.replace(full_yi, num_layers=MESH_BF16_LAYERS["yi-9b"])
     granite = dataclasses.replace(
-        granite, capacity_factor=granite.num_experts / granite.experts_per_token)
+        full_granite, num_layers=MESH_BF16_LAYERS["granite-moe-3b-a800m"],
+        capacity_factor=full_granite.num_experts / full_granite.experts_per_token)
     yi_batches = [rng.integers(0, yi.vocab_size, bs).astype(np.int32) for bs in MESH_YI_BATCHES]
     g_batch = [rng.integers(0, granite.vocab_size, MESH_GRANITE_BATCH).astype(np.int32)]
     yi_f32 = dataclasses.replace(yi, num_layers=MESH_F32_LAYERS["yi-9b"])
     granite_f32 = dataclasses.replace(granite,
                                       num_layers=MESH_F32_LAYERS["granite-moe-3b-a800m"])
     return [
-        ("yi-9b", yi, (1, 4), torch.bfloat16, yi_batches, MESH_LOGIT_TOL["bfloat16"]),
-        ("granite-moe-3b-a800m", granite, (2, 2), torch.bfloat16, g_batch,
+        (f"yi-9b x{yi.num_layers}", yi, (1, 4), torch.bfloat16, yi_batches,
          MESH_LOGIT_TOL["bfloat16"]),
+        (f"granite-moe-3b-a800m x{granite.num_layers}", granite, (2, 2), torch.bfloat16,
+         g_batch, MESH_LOGIT_TOL["bfloat16"]),
         (f"yi-9b x{yi_f32.num_layers} f32", yi_f32, (1, 4), torch.float32, yi_batches,
          MESH_LOGIT_TOL["float32"]),
         (f"granite-moe-3b-a800m x{granite_f32.num_layers} f32", granite_f32, (2, 2),
@@ -2040,15 +2187,55 @@ def mesh_runs_spec(seed=14):
     ]
 
 
+def dryrun_serve(cfg, shape, rank, batch, dtype):
+    """The dry-run's collectives (``launch.dryrun``: the steps on meta
+    tensors under a count-only view of the mesh) of rank ``rank``'s prefill
+    of ``batch`` and of one decode step after it: {"prefill", "decode"}
+    by kind, count and bytes."""
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    b, n = (len(batch["tokens"]), batch["tokens"].shape[1]) if isinstance(batch, dict) \
+        else batch.shape
+    ctx = n + (cfg.vision_tokens if cfg.family == "vlm" else 0) + cfg.num_meta_tokens
+    dt = None if dtype == torch.bfloat16 else dtype
+    mesh = {"data": shape[0], "model": shape[1]}
+    return {"prefill": dryrun.count(cfg, "prefill", mesh, rank, batch=b, seq=n,
+                                    dtype=dt).summary(),
+            "decode": dryrun.count(cfg, "decode", mesh, rank, batch=b, seq=ctx,
+                                   dtype=dt).summary()}
+
+
+def serve_launches(cfg, layout):
+    """A mesh serving run's launches on each rank (prefill + MAX_NEW steps):
+    flash_prefill once a layer at prefill (whisper: each encoder layer,
+    each decoder layer's self- and cross-attention, and the cross-attention
+    again every step), paged_attention once a layer a step over pages (with
+    lse where they split), ssd_scan once an SSM layer at prefill."""
+    want = dict.fromkeys(kernel_ops(), 0)
+    L = cfg.num_layers
+    if cfg.is_encoder_decoder:
+        want["flash_prefill"] = cfg.encoder_layers + 2 * L + L * MAX_NEW
+        want["paged_attention"] = L * MAX_NEW
+    elif cfg.has_attention:
+        want["flash_prefill"] = L
+        want["paged_attention"] = 0 if cfg.sliding_window else L * MAX_NEW
+    if cfg.has_ssm:
+        want["ssd_scan"] = L
+    want["paged_attention_lse"] = want["paged_attention"] if layout.seq_parallel else 0
+    return want
+
+
 def _mesh_rank(dev, rank, world, work, runs):
-    """One rank of phase 14: each of ``runs`` on its mesh; results to
+    """One rank of a serving mesh phase (14, 16): each of ``runs`` on its
+    mesh, then the dry-run's collectives of this rank's steps; results to
     ``work/rank{rank}.pkl``."""
     import pickle
 
     import torch
 
     from repro_torch.launch.mesh import build_params, make_mesh
-    from repro_torch.models import sharding
     from repro_torch.models.registry import build_model
     from repro_torch.tree import leaves
 
@@ -2079,27 +2266,33 @@ def _mesh_rank(dev, rank, world, work, runs):
                 shard_gb=sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9)
         del params, model
         free_model()
+    for name, cfg, shape, dtype, batches, _ in runs:   # after the runs: CPU work only
+        for i, toks in enumerate(batches):
+            t0 = time.perf_counter()
+            out["runs"][f"{name} #{i}"]["dryrun"] = dryrun_serve(cfg, shape, rank, toks, dtype)
+            out["runs"][f"{name} #{i}"]["dryrun_s"] = time.perf_counter() - t0
     with open(f"{work}/rank{rank}.pkl", "wb") as fh:
         pickle.dump(out, fh)
 
 
-def phase_mesh(card):
-    """Phase 14: serving under a ("data", "model") mesh of MESH_RANKS ranks
-    spawned with ``torch.multiprocessing`` (each its own CUDA context; gloo
-    when they share the one card, nccl when each has a card of its own),
-    the runs of ``mesh_runs_spec``.  Yi-9B over (1, 4), tensor parallel 4:
-    3 x 1024 tokens (48 pages a sequence, 12 a rank: the sequence-parallel
-    branch with rank 2's slice partial and rank 3's empty) and 3 x 96 (19
-    pages: whole on every rank), 8 new tokens each.  granite-moe-3b-a800m
-    folded over (2, 2): experts over 'data', their FSDP shards gathered
-    over 'model' each call, 4 x 128 tokens (4 groups of 128: the
-    expert-parallel branch).  Each run against a single-card run of the
-    same seed, prompts and dtype made first: the first step's logits
-    within the run's tolerance, the tokens equal wherever the single-card
-    run's top-2 margin exceeds it (``repro_torch.parity``); every rank's
-    launches exact (paged_attention with lse once a layer and step where
-    the pages split); one decode step's collectives printed by kind.
-    Returns the per-run records."""
+def phase_mesh(card, runs=None, tag="phase 14"):
+    """Phase 14 (``runs``: ``mesh_runs_spec``) or 16's serving runs: serving
+    under a ("data", "model") mesh of MESH_RANKS ranks spawned with
+    ``torch.multiprocessing`` (each its own CUDA context; gloo when they
+    share the one card, nccl when each has a card of its own).  Phase 14:
+    Yi-9B over (1, 4), tensor parallel 4: 3 x 1024 tokens (48 pages a
+    sequence, 12 a rank: the sequence-parallel branch with rank 2's slice
+    partial and rank 3's empty) and 3 x 96 (19 pages: whole on every
+    rank), 8 new tokens each; granite-moe-3b-a800m folded over (2, 2):
+    experts over 'data', their FSDP shards gathered over 'model' each call,
+    4 x 128 tokens (4 groups of 128: the expert-parallel branch).  Each
+    run against a single-card run of the same seed, prompts and dtype made
+    first: the first step's logits within the run's tolerance, the tokens
+    equal wherever the single-card run's top-2 margin exceeds it
+    (``repro_torch.parity``); every rank's launches exact
+    (``serve_launches``); every rank's collectives of the prefill and of a
+    decode step equal, in count and bytes, to the dry-run's of that rank
+    (``dryrun_serve``).  Returns the per-run records."""
     import pickle
     import tempfile
 
@@ -2112,7 +2305,7 @@ def phase_mesh(card):
 
     free_model()
     t_phase = time.perf_counter()
-    runs = mesh_runs_spec()
+    runs = mesh_runs_spec() if runs is None else runs
     refs = {}
     t0 = time.perf_counter()
     for name, cfg, _, dtype, batches, _ in runs:
@@ -2140,270 +2333,161 @@ def phase_mesh(card):
             ref_logits, ref_tokens, ref_times = refs[run]
             got = ranks[0]["runs"][run]
             layout = got["layout"]
-            L = cfg.num_layers
-            want = {"flash_prefill": L, "paged_attention": L * MAX_NEW,
-                    "paged_attention_lse": L * MAX_NEW if layout.seq_parallel else 0,
-                    "kv_pull": 0, "kv_pull_dequant": 0, "ssd_scan": 0}
+            want = serve_launches(cfg, layout)
             for r, rank in enumerate(ranks):
-                expect_counts(f"phase 14: {run} rank {r}", rank["runs"][run]["counts"], want)
-                if any(not torch.equal(a, b) for a, b in zip(rank["runs"][run]["tokens"],
-                                                              got["tokens"])):
-                    raise AssertionError(f"phase 14: {run}: rank {r}'s tokens differ from "
+                mine = rank["runs"][run]
+                expect_counts(f"{tag}: {run} rank {r}", mine["counts"], want)
+                if any(not torch.equal(a, b) for a, b in zip(mine["tokens"], got["tokens"])):
+                    raise AssertionError(f"{tag}: {run}: rank {r}'s tokens differ from "
                                          f"rank 0's")
-            if cfg.num_experts and not all(got["step"].get(k, {}).get("count")
+                if mine["step"] != mine["dryrun"]:
+                    raise AssertionError(f"{tag}: {run} rank {r}: collectives {mine['step']} "
+                                         f"!= the dry-run's {mine['dryrun']}")
+            if cfg.num_experts and not all(got["step"]["decode"].get(k, {}).get("count")
                                            for k in ("all-to-all", "all-gather")):
-                raise AssertionError(f"phase 14: {run}: the expert exchange ran no all_to_all "
+                raise AssertionError(f"{tag}: {run}: the expert exchange ran no all_to_all "
                                      f"or all_gather in a decode step: {got['step']}")
+            rounding = None
+            lim = tol
+            if isinstance(tol, str):   # the one card's bf16 rounding: against its f32 run
+                rounding = float((ref_logits[0] - refs[f"{tol} #{i}"][0][0]).abs().max())
+                lim = M16_ROUNDING * rounding
             diff = got["logits"][0] - ref_logits[0]
             err = float(diff.abs().max())
             rel = float(diff.norm() / ref_logits[0].norm())
-            if not np.isfinite(err) or not err <= tol:
-                raise AssertionError(f"phase 14: {run}: first-step logits max |err| {err} "
-                                     f"above {tol}")
-            agree = parity.check_greedy_tokens(ref_logits, ref_tokens, got["tokens"], tol,
+            if not np.isfinite(err) or not err <= lim:
+                raise AssertionError(f"{tag}: {run}: first-step logits max |err| {err} "
+                                     f"above {lim} (one card's own bf16 rounding {rounding})")
+            agree = parity.check_greedy_tokens(ref_logits, ref_tokens, got["tokens"], lim,
                                                vocab=cfg.vocab_size)
             n_tok = len(ref_tokens) * len(ref_tokens[0])
+            why = "" if rounding is None else \
+                f" = {M16_ROUNDING} x the one card's bf16 rounding {rounding:.4g}"
             records[run] = dict(
                 seconds=got["seconds"], build_s=got["build_s"], mesh=shape,
                 dtype=str(dtype), seq_parallel=layout.seq_parallel,
                 batch_axes=layout.batch_axes, logits_max_abs_err=err, logits_rel_err=rel,
-                tol=tol, tokens_compared=agree["compared"], tokens=n_tok,
+                tol=lim, single_card_bf16_rounding=rounding, tokens_compared=agree["compared"], tokens=n_tok,
                 first_uncompared=agree["first_uncompared_step"], counts=got["counts"],
-                collectives_per_decode_step=got["step"],
+                collectives_per_decode_step=got["step"]["decode"],
+                collectives_prefill=got["step"]["prefill"], dryrun_s=got["dryrun_s"],
                 peak_gb=[rank["runs"][run]["peak_gb"] for rank in ranks],
                 shard_gb=got["shard_gb"], backend=backend, times=got["times"],
                 single_card_times=ref_times)
-            log(f"phase 14 ({card}; {backend}, {MESH_RANKS} ranks): {run} on mesh "
+            log(f"{tag} ({card}; {backend}, {MESH_RANKS} ranks): {run} on mesh "
                 f"{dict(zip(('data', 'model'), shape))} {layout}: {got['seconds']:.2f}s for "
                 f"prefill + {MAX_NEW} steps (prefill {got['times']['prefill_s']:.3f}s, "
                 f"decode step {got['times']['step_s']:.4f}s median; one card "
                 f"{ref_times['prefill_s']:.3f}s and {ref_times['step_s']:.4f}s; params built "
-                f"rank by rank in {got['build_s']:.1f}s); first-step logits max |err| {err:.4g} (limit {tol}), "
+                f"rank by rank in {got['build_s']:.1f}s); first-step logits max |err| "
+                f"{err:.4g} (limit {lim:.4g}{why}), "
                 f"||err||/||ref|| {rel:.3e}; tokens compared {agree['compared']}/{n_tok} "
                 f"(first uncompared step per sequence {agree['first_uncompared_step']}); "
                 f"peak per rank {[round(x, 2) for x in records[run]['peak_gb']]} GB, shard "
                 f"{got['shard_gb']:.2f} GB; launches per rank {got['counts']}")
-            log(f"phase 14: {run}: collectives of one decode step (per rank): {got['step']}")
-    log(f"phase 14: {time.perf_counter() - t_phase:.1f}s (single-card references "
+            log(f"{tag}: {run}: collectives per rank, each equal to the dry-run's (counted "
+                f"in {got['dryrun_s']:.1f}s): prefill {got['step']['prefill']}; one decode "
+                f"step {got['step']['decode']}")
+    log(f"{tag}: {time.perf_counter() - t_phase:.1f}s (single-card references "
         f"{t_ref:.1f}s, the ranks {t_ranks:.1f}s)")
     return records
 
 
 # ----------------------------------------------------------- phase 15
-def _numel_bytes(shape, dtype):
-    import math
-
-    import torch
-
-    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
-
-
-def predict_train_collectives(model, shape, batch, seq, dtype, remat=True):
-    """The collectives of one ``make_train_step`` step of ``model`` (a
-    dense, MoE or SSM ``DecoderLM``, one layer a group) on one rank of a
-    ("data", "model") mesh of ``shape``, weights cast to ``dtype`` (None:
-    the init's, bf16 with the SSM's f32 vectors), a global
-    batch of ``batch`` x ``seq`` tokens: {"forward"|"backward": {kind:
-    {"count", "bytes"}}}, enumerated from the placement rules
-    (``launch.shardings``) and the model code's collective rules
-    (``models.sharding``'s gradient convention): each FSDP leaf gathered
-    over 'data' at its use and reduce-scattered back; the GQA gathers of
-    k/v (or q) over 'model'; the row-parallel and embedding sums; the
-    vocab-sharded loss's three sums; ``copy_to_model`` at each
-    column-parallel input; the MoE exchange both ways and the expert
-    halves' gathers; under remat each group's forward again, less its
-    trailing sums after the last value the backward needs (the final
-    row-parallel sum, the MoE aux loss's); the DP gradient sums (one a
-    set of axes and an axis) and the clip norm's one a split axis."""
-    import math
-
-    import torch
-
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.shardings import (
-        batch_spec, fsdp_plan, grad_reduce_axes, param_sharding, shard_tensor, spec_axes,
-        spec_leaves, split_axes)
-    from repro_torch.models import sharding
-    from repro_torch.models.moe import capacity, group_size
-    from repro_torch.tree import leaves
-
-    cfg = model.cfg
-    if model.group != 1 or cfg.family not in ("dense", "moe", "ssm") or cfg.num_meta_tokens:
-        raise NotImplementedError(f"no collective model for {cfg.name}")
-    fold = cfg.fold_model_axis_into_dp
-    mesh = Mesh.view({"data": shape[0], "model": shape[1]}, 0)
-    full = model.param_shapes()
-    train_specs = param_sharding(full, mesh, mode="train", fold_model=fold)
-    plan = fsdp_plan(full, mesh, fold_model=fold)
-    out = {"forward": {}, "backward": {}}
-    pd = dtype or torch.bfloat16   # the activations' dtype, and the weights' gradients'
-
-    def add(direction, kind, shp, dt=pd, n=1):
-        s = out[direction].setdefault(kind, {"count": 0, "bytes": 0})
-        s["count"] += n
-        s["bytes"] += n * _numel_bytes(shp, dt)
-
-    def train_shape(path):
-        node, sp = full, train_specs
-        for k in path:
-            node, sp = node[k], sp[k]
-        return list(shard_tensor(node, sp, mesh).shape)
-
-    def gathers(path, n=1, lead=0):
-        """The FSDP gathers of the leaves under ``path`` (forward ``n``
-        times), each reduce-scattered once; returns the serving shapes."""
-        shapes = {}
-        node = plan
-        for k in path:
-            node = node[k]
-
-        def walk(p, pl):
-            if isinstance(pl, dict):
-                for k in pl:
-                    walk(p + [k], pl[k])
-                return
-            shp = train_shape(p)
-            for dim, axes in pl:
-                for a in reversed(axes):
-                    if mesh.shape[a] == 1:   # a no-op, as every collective over one rank
-                        continue
-                    before = list(shp)
-                    shp[dim] *= mesh.shape[a]
-                    add("forward", "all-gather", shp[lead:], n=n)
-                    add("backward", "reduce-scatter", before[lead:])
-            shapes[tuple(p)] = shp[lead:]
-        walk(list(path), node)
-        return shapes
-
-    bspec = batch_spec(mesh, batch, fold_model=fold)
-    baxes = spec_axes(bspec[0]) if bspec else ()
-    split = math.prod(mesh.shape[a] for a in baxes)
-    bl, d = batch // split, cfg.d_model
-    n_sums = len([a for a in baxes if mesh.shape[a] > 1])   # an all_reduce over the batch's axes
-    with sharding.mesh_context(mesh, fold_model_axis=fold):
-        tp = sharding.tp_size()
-        reps = 2 if remat else 1
-        # the embedding: its table gathered, the vocab-sharded lookup's sum
-        emb = gathers(["embed"])[("embed", "table")]
-        if emb[0] < cfg.padded_vocab:
-            add("forward", "all-reduce", (bl, seq, d), torch.float32)
-        # each layer: FSDP gathers (twice under remat), then its own collectives
-        for _ in range(model.n_steps):
-            serve = gathers(["layers"], n=reps, lead=1)
-            tail = []   # forward records after the last saved value: not recomputed
-            if cfg.has_attention:
-                A, hd = cfg.attn_dim, cfg.head_dim
-                for name, n in (("q", cfg.num_heads), ("k", cfg.num_kv_heads),
-                                ("v", cfg.num_kv_heads)):
-                    cols = serve[("layers", "attn", name, "w")][-1]
-                    if cols < n * hd and not sharding.heads_sharded(n):
-                        add("forward", "all-gather", (bl, seq, n * hd), n=reps)
-                        add("backward", "reduce-scatter", (bl, seq, cols))
-                if serve[("layers", "attn", "q", "w")][-1] < A and tp > 1:
-                    add("backward", "all-reduce", (bl, seq, d))       # copy_to_model
-                if serve[("layers", "attn", "o", "w")][-2] < A:
-                    add("forward", "all-reduce", (bl, seq, d), torch.float32, n=reps)
-            if cfg.family == "dense":
-                ff = cfg.d_ff
-                if serve[("layers", "mlp", "gate", "w")][-1] < ff and tp > 1:
-                    add("backward", "all-reduce", (bl, seq, d))
-                if serve[("layers", "mlp", "down", "w")][-2] < ff:
-                    tail.append(("all-reduce", (bl, seq, d), torch.float32))
-            if cfg.family == "moe":
-                e, e_pad, k, ff = (cfg.num_experts, cfg.padded_experts, cfg.experts_per_token,
-                                   cfg.d_ff)
-                n_tok = batch * seq
-                gs = group_size(n_tok, sharding.dp_size())
-                g, g_l, cap = n_tok // gs, bl * seq // gs, capacity(gs, k, e,
-                                                                      cfg.capacity_factor)
-                if split > 1 and g % split:
-                    raise NotImplementedError("a MoE group spanning ranks")
-                gate = serve[("layers", "moe", "gate")]
-                tp_split = tp > 1 and gate[-1] < ff
-                if tp_split:
-                    add("backward", "all-reduce", (g_l, e_pad * cap, d))
-                ff_sharded = tp > 1 and ff % tp == 0 and ff // tp >= 128
-                if gate[-1] < ff and not ff_sharded:
-                    for w in ("gate", "up", "down"):
-                        before = serve[("layers", "moe", w)]
-                        after = list(before)
-                        after[-1 if w != "down" else -2] = ff
-                        add("forward", "all-gather", after, n=reps)
-                        add("backward", "reduce-scatter", before)
-                    gate = [gate[0], gate[1], ff]
-                dsize = sharding.axis_size("data")
-                if g % sharding.dp_size() or e_pad % dsize or dsize == 1:
-                    raise NotImplementedError("the MoE's local branch")
-                if tuple(a for a in sharding.dp_axes() if a not in baxes):
-                    raise NotImplementedError("MoE rows over DP axes outside the batch's")
-                for _ in range(2):  # the exchange there and back, both ways
-                    add("forward", "all-to-all", (g_l, e_pad * cap, d), n=reps)
-                    add("backward", "all-to-all", (g_l, e_pad * cap, d))
-                if gate[-1] < ff:
-                    add("forward", "all-reduce", (gate[0], g_l * dsize * cap, d),
-                        torch.float32, n=reps)
-                tail += [("all-reduce", (), torch.float32)] * n_sums
-            for kind, shp, dt in tail:
-                add("forward", kind, shp, dt)
-        # the head: its table gathered, then the loss
-        head = "lm_head" if "lm_head" in full else "embed"
-        table = gathers([head])[(head, "table")]
-        if table[0] < cfg.padded_vocab:
-            add("backward", "all-reduce", (bl, seq - 1, d))           # copy_to_model
-            add("forward", "all-reduce", (bl, seq - 1), torch.float32, n=3)
-        add("forward", "all-reduce", (), torch.float32, n=n_sums)
-        # after the backward: the DP sums (one a set of axes and a dtype),
-        # then the clip's norm
-        specs = spec_leaves(train_specs)
-        groups = {}
-        for x, sp in zip(leaves(full), specs):
-            axes = grad_reduce_axes(sp, mesh, fold_model=fold)
-            if axes:
-                key = (axes, dtype or x.dtype)
-                groups[key] = groups.get(key, 0) + shard_tensor(x, sp, mesh).numel()
-        for (axes, _), n in groups.items():
-            add("backward", "all-reduce", (n,), torch.float32, n=len(axes))
-        for axis in mesh.axis_names:
-            if mesh.shape[axis] > 1 and any(axis in split_axes(sp) for sp in specs):
-                add("backward", "all-reduce", (len(specs),), torch.float32)
-    return out
-
-
 def _mesh_train_cfg(arch, layers=None, f32=False):
-    """A phase-15 config: ``arch`` at full width, cut to ``layers``; for the
-    f32 comparisons MoE at capacity_factor = E / k, so that the mesh's MoE
-    groups (sized by its DP extent) hold the one card's tokens and no pair
-    drops."""
+    """A mesh training config: ``arch`` at full width, cut to ``layers``
+    (an encoder-decoder's encoder too); for the f32 comparisons MoE at
+    capacity_factor = E / k, so that the mesh's MoE groups (sized by its DP
+    extent) hold the one card's tokens and no pair drops."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  **({"encoder_layers": layers} if cfg.is_encoder_decoder
+                                     else {}))
     if f32 and cfg.num_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     return cfg
 
 
-def _train_launches(arch, layers, steps):
-    """A mesh train run's launches on each rank: flash_prefill (ssd_scan for
-    mamba2) once a layer a step, twice under remat; nothing else."""
+def _train_launches(cfg, steps):
+    """A mesh train run's launches on each rank under remat: flash_prefill
+    and ssd_scan twice a layer a step (the forward and its recompute);
+    whisper's encoder, outside the remat regions, once a layer a step.
+    Nothing else."""
     want = dict.fromkeys(kernel_ops(), 0)
-    want["ssd_scan" if arch.startswith("mamba2") else "flash_prefill"] = layers * steps * 2
+    L = cfg.num_layers
+    if cfg.is_encoder_decoder:
+        want["flash_prefill"] = (cfg.encoder_layers + 4 * L) * steps
+    elif cfg.has_attention:
+        want["flash_prefill"] = L * steps * 2
+    if cfg.has_ssm:
+        want["ssd_scan"] = L * steps * 2
     return want
+
+
+def _train_batch(cfg, b, s, seed, tokens=None):
+    """A training batch of ``cfg``: ``tokens`` (else drawn from ``seed``),
+    and a VLM's image embeddings or an encoder-decoder's frames drawn from
+    ``seed`` (``launch.mesh.prompt_batch``)."""
+    import torch
+
+    from repro_torch.launch.mesh import prompt_batch
+
+    batch = prompt_batch(cfg, b, s, seed=seed)
+    if tokens is not None:
+        batch["tokens"] = torch.as_tensor(tokens)
+    return batch
+
+
+def dryrun_train(cfg, shape, rank, b, s):
+    """The dry-run's collectives of rank ``rank``'s train step of ``cfg``
+    on a ("data", "model") mesh of ``shape`` over a global batch of ``b``
+    x ``s``: {"forward"|"backward": {kind: {"count", "bytes"}}}."""
+    from repro_torch.launch import dryrun
+
+    got = dryrun.count(cfg, "train", {"data": shape[0], "model": shape[1]}, rank,
+                       batch=b, seq=s)
+    return {d: got.summary(d) for d in ("forward", "backward")}
+
+
+def _named_leaves(tree, path=""):
+    """(path, leaf) of a param tree in JAX's leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
 
 
 def _rel(got, ref) -> float:
     return float((got.double() - ref.double()).norm() / max(float(ref.double().norm()), 1e-30))
 
 
+def _adamw_first_step(g, gnorm, ocfg):
+    """AdamW's first normalised step of the gradient ``g`` without the
+    weight decay, as ``adamw_update`` computes it: ``g`` clipped by the
+    global norm ``gnorm``, then the bias-corrected m / (sqrt(v) + eps)."""
+    import torch
+
+    g32 = g.float() * torch.clamp(ocfg.clip_norm / (torch.as_tensor(gnorm) + 1e-9), max=1.0)
+    m = (1 - ocfg.b1) * g32 / (1 - ocfg.b1)
+    v = (1 - ocfg.b2) * g32 * g32 / (1 - ocfg.b2)
+    return m / (torch.sqrt(v) + ocfg.eps)
+
+
 def _f32_vs_one_card(dev, rank, world, arch, shape, b, s):
     """One f32 step of ``arch``'s 2-layer full-width cut under the mesh
     against the same step on one card (same seed and batch).  The one-card
     step runs in every rank, one rank at a time between barriers, each
-    keeping its slices of the gradients and updated params."""
-    import numpy as np
+    keeping its slices of the gradients and updated params.  Each leaf's
+    gradient shard is held at MTRAIN_GRAD_REL (a leaf whose gradient is
+    zero in exact arithmetic: the mesh's as near zero), its updated param
+    shard at MTRAIN_PARAM_REL over the elements whose gradient is clear of
+    AdamW's eps (MTRAIN_AT_EPS); the others at MTRAIN_PARAM_REL once each
+    side's own step is taken out: p + lr * step is the same start on both
+    sides."""
     import torch
     import torch.distributed as dist
 
@@ -2421,8 +2505,7 @@ def _f32_vs_one_card(dev, rank, world, arch, shape, b, s):
     specs = spec_leaves(param_sharding(model.param_shapes(), mesh, mode="train",
                                        fold_model=fold))
     ocfg = AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=4)
-    batch = {"tokens": torch.as_tensor(np.random.default_rng(15).integers(
-        0, cfg.vocab_size, (b, s)).astype(np.int32), device=dev)}
+    batch = {k: v.to(dev) for k, v in _train_batch(cfg, b, s, 15).items()}
     seen = {}
     update = steps.adamw_update
 
@@ -2440,6 +2523,7 @@ def _f32_vs_one_card(dev, rank, world, arch, shape, b, s):
                 params, opt, met = steps.make_train_step(model, ocfg, remat=True)(
                     params, opt, batch)
                 ref = {"loss": float(met["loss"]), "gnorm": float(met["grad_norm"]),
+                       "lr": float(met["lr"]),
                        "grads": [shard_tensor(g, sp, mesh) for g, sp in
                                  zip(seen.pop("grads"), specs)],
                        "params": [shard_tensor(p, sp, mesh) for p, sp in
@@ -2455,27 +2539,46 @@ def _f32_vs_one_card(dev, rank, world, arch, shape, b, s):
         counts = read_counts()
     finally:
         steps.adamw_update = update
-    total = ref["gnorm"]
-    grad_errs, zero_ok = [], True
-    for g, r in zip(seen["grads"], ref["grads"]):
+    total, lr = ref["gnorm"], float(met["lr"])
+    grad_errs, param_errs, at_eps, zero_ok = [], [], [], True
+    names = [n for n, _ in _named_leaves(model.param_shapes())]
+    for name, g, r, p, rp in zip(names, seen["grads"], ref["grads"], leaves(params),
+                                 ref["params"]):
         if float(r.norm()) <= 1e-6 * total:
+            # zero in exact arithmetic (a key bias shifts a row's scores alike)
             zero_ok &= float(g.norm()) <= 1e-6 * total
         else:
-            grad_errs.append(_rel(g, r))
+            grad_errs.append((_rel(g, r), name))
+        steep = r.abs() * min(1.0, ocfg.clip_norm / (total + 1e-9)) <= MTRAIN_AT_EPS * ocfg.eps
+        if not bool(steep.all()):
+            param_errs.append((_rel(p[~steep], rp[~steep]), name))
+        if not bool(steep.any()):
+            continue
+        u = _adamw_first_step(g[steep], met["grad_norm"], ocfg).double()
+        ru = _adamw_first_step(r[steep], total, ocfg).double()
+        ps, rps = p[steep].double(), rp[steep].double()
+        start = ps + lr * u - (rps + ref["lr"] * ru)
+        scale = float(rps.norm()) + lr * float(u.norm()) + ref["lr"] * float(ru.norm())
+        at_eps.append({"leaf": name, "elements": int(steep.sum()), "of": r.numel(),
+                       "param_rel": _rel(ps, rps),
+                       "start_rel": float(start.norm()) / max(scale, 1e-30)})
     out = {"loss": float(met["loss"]), "ref_loss": ref["loss"],
            "gnorm": float(met["grad_norm"]), "ref_gnorm": ref["gnorm"],
-           "grad_rel": max(grad_errs), "zero_ok": zero_ok,
-           "param_rel": max(_rel(p, r) for p, r in zip(leaves(params), ref["params"])),
+           "grad_rel": max(grad_errs)[0], "zero_ok": zero_ok, "param_rel": max(param_errs)[0],
+           "worst_leaves": {"grad": max(grad_errs)[1], "param": max(param_errs)[1]},
+           "at_eps": at_eps,
+           "start_rel": max((x["start_rel"] for x in at_eps), default=0.0),
            "counts": counts, "layers": cfg.num_layers}
     del params, opt, ref, seen
     free_model()
     return out
 
 
-def _mesh_train_run(dev, arch, layers, shape, b, s):
+def _mesh_train_run(dev, rank, arch, layers, shape, b, s):
     """``MTRAIN_STEPS`` bf16 steps of ``arch`` (full width, cut to
     ``layers``) under the mesh: losses, step times, this rank's launches
-    and peak memory, each step's collectives by direction and kind."""
+    and peak memory, each step's collectives by direction and kind, and the
+    dry-run's for this rank (after the steps: CPU work only)."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticLMDataset
@@ -2503,8 +2606,9 @@ def _mesh_train_run(dev, arch, layers, shape, b, s):
     data = SyntheticLMDataset(cfg.vocab_size, s, b)
     losses, times, colls = [], [], []
     reset_counts()
-    for _ in range(MTRAIN_STEPS):
-        batch = {"tokens": torch.as_tensor(data.next_batch()["tokens"], device=dev)}
+    for i in range(MTRAIN_STEPS):
+        batch = {k: v.to(dev) for k, v in _train_batch(
+            cfg, b, s, 100 + i, tokens=data.next_batch()["tokens"]).items()}
         sharding.COUNTER.reset()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -2518,6 +2622,9 @@ def _mesh_train_run(dev, arch, layers, shape, b, s):
            "build_s": build_s, "layers": cfg.num_layers, "wire_bytes": wire}
     del params, opt, model
     free_model()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_train(cfg, shape, rank, b, s)
+    out["dryrun_s"] = time.perf_counter() - t0
     return out
 
 
@@ -2586,9 +2693,9 @@ def _mesh_checkpoint(dev, rank, world):
             "leaves": n}
 
 
-def _mesh_train_rank(dev, rank, world, work):
-    """One rank of phase 15: the f32 comparisons, the bf16 runs, the
-    checkpoint; results to ``work/rank{rank}.pkl``."""
+def _mesh_train_rank(dev, rank, world, work, f32_runs, runs, checkpoint):
+    """One rank of a training mesh phase (15, 16): the f32 comparisons, the
+    bf16 runs, the checkpoint (phase 15); results to ``work/rank{rank}.pkl``."""
     import pickle
 
     import torch
@@ -2598,87 +2705,98 @@ def _mesh_train_rank(dev, rank, world, work):
     from repro_torch.launch.mesh import choose_backend
 
     out = {"backend": choose_backend(world, dev), "f32": {}, "runs": {}}
-    for arch, shape, b, s in MTRAIN_F32:
+    for arch, shape, b, s in f32_runs:
         out["f32"][arch] = _f32_vs_one_card(dev, rank, world, arch, shape, b, s)
-    for name, arch, layers, shape, b, s in MTRAIN_RUNS:
-        out["runs"][name] = _mesh_train_run(dev, arch, layers, shape, b, s)
-    out["ckpt"] = _mesh_checkpoint(dev, rank, world)
+    for name, arch, layers, shape, b, s in runs:
+        out["runs"][name] = _mesh_train_run(dev, rank, arch, layers, shape, b, s)
+    if checkpoint:
+        out["ckpt"] = _mesh_checkpoint(dev, rank, world)
     with open(f"{work}/rank{rank}.pkl", "wb") as fh:
         pickle.dump(out, fh)
 
 
-def phase_mesh_train(card):
-    """Phase 15: training under a ("data", "model") mesh of MESH_RANKS
-    spawned ranks (gloo on one card, nccl with a card a rank).  Before the
-    spawn, each bf16 run's collectives a step are predicted
-    (``predict_train_collectives``); the ranks then run, in one spawn:
-    (1) for Yi-9B over (2, 2), granite-moe folded over (2, 2) and mamba2 over
-    (4, 1), the f32 2-layer full-width cut's step under the mesh against
-    the same step on one card (loss 1e-5, gradient norm 1e-4 relative, each
-    leaf's gradient shard and updated param shard 1e-4 in ||err|| / ||ref||);
-    (2) MTRAIN_RUNS in bf16, MTRAIN_STEPS steps each: losses finite,
-    flash_prefill (ssd_scan for mamba2) exactly layers x steps x 2 on every
-    rank, every step's collectives equal to the prediction on every rank;
-    (3) the checkpoint of ``_mesh_checkpoint``.  Returns the records."""
+def phase_mesh_train(card, f32_runs=None, runs=None, tag="phase 15"):
+    """Phase 15 (or 16's training, ``f32_runs`` and ``runs`` given, no
+    checkpoint): training under a ("data", "model") mesh of MESH_RANKS
+    spawned ranks (gloo on one card, nccl with a card a rank), in one
+    spawn: (1) for each of ``f32_runs`` (phase 15: Yi-9B over (2, 2),
+    granite-moe folded over (2, 2), mamba2 over (4, 1)), the f32 2-layer
+    full-width cut's step under the mesh against the same step on one card
+    (loss 1e-5, gradient norm 1e-4 relative, each leaf's gradient shard and
+    updated param shard 1e-4 in ||err|| / ||ref||); (2) ``runs`` in bf16,
+    MTRAIN_STEPS steps each: losses finite, the kernels' launches exact on
+    every rank (``_train_launches``), every step's collectives on every
+    rank equal to the dry-run's of that rank (``dryrun_train``: the step on
+    meta tensors under a count-only view of the mesh); (3) phase 15 only,
+    the checkpoint of ``_mesh_checkpoint``.  Returns the records."""
     import pickle
     import tempfile
 
     import numpy as np
 
     from repro_torch.launch.mesh import spawn
-    from repro_torch.models.registry import build_model
 
     free_model()
     t_phase = time.perf_counter()
-    predicted = {name: predict_train_collectives(
-        build_model(_mesh_train_cfg(arch, layers), device="cpu"), shape, b, s, None)
-        for name, arch, layers, shape, b, s in MTRAIN_RUNS}
-    for name, pred in predicted.items():
-        log(f"phase 15: {name}: predicted collectives of a step, per rank: {pred}")
+    checkpoint = f32_runs is None
+    f32_runs = MTRAIN_F32 if f32_runs is None else f32_runs
+    runs = MTRAIN_RUNS if runs is None else runs
     with tempfile.TemporaryDirectory() as work:
-        spawn(_mesh_train_rank, MESH_RANKS, f"{work}/init", device="cuda", args=(work,),
-              timeout=MESH_TIMEOUT)
+        spawn(_mesh_train_rank, MESH_RANKS, f"{work}/init", device="cuda",
+              args=(work, f32_runs, runs, checkpoint), timeout=MESH_TIMEOUT)
         ranks = [pickle.load(open(f"{work}/rank{r}.pkl", "rb")) for r in range(MESH_RANKS)]
     backend = ranks[0]["backend"]
     records = {"backend": backend, "f32": {}, "runs": {}}
-    for arch, shape, b, s in MTRAIN_F32:
-        worst = {k: max(r["f32"][arch][k] for r in ranks) for k in ("grad_rel", "param_rel")}
+    for arch, shape, b, s, *_ in f32_runs:
+        worst = {k: max(r["f32"][arch][k] for r in ranks)
+                 for k in ("grad_rel", "param_rel", "start_rel")}
         rank0 = ranks[0]["f32"][arch]
         for r, rank in enumerate(ranks):
             got = rank["f32"][arch]
-            what = f"phase 15: {arch} x{got['layers']} f32 over {shape}, rank {r}"
+            what = f"{tag}: {arch} x{got['layers']} f32 over {shape}, rank {r}"
             lr = abs(got["loss"] - got["ref_loss"]) / abs(got["ref_loss"])
             gr = abs(got["gnorm"] - got["ref_gnorm"]) / abs(got["ref_gnorm"])
             if not (lr <= MTRAIN_LOSS_RTOL and gr <= MTRAIN_GNORM_RTOL
                     and got["grad_rel"] <= MTRAIN_GRAD_REL and got["zero_ok"]
-                    and got["param_rel"] <= MTRAIN_PARAM_REL):
+                    and got["param_rel"] <= MTRAIN_PARAM_REL
+                    and got["start_rel"] <= MTRAIN_PARAM_REL):
                 raise AssertionError(f"{what}: loss {got['loss']!r} vs {got['ref_loss']!r}, "
                                      f"grad norm {got['gnorm']!r} vs {got['ref_gnorm']!r}, "
                                      f"grad shards {got['grad_rel']:.3e}, params "
-                                     f"{got['param_rel']:.3e}, zeros held {got['zero_ok']}")
-            expect_counts(what, got["counts"], _train_launches(arch, got["layers"], 1))
+                                     f"{got['param_rel']:.3e} (worst leaves "
+                                     f"{got['worst_leaves']}), "
+                                     f"zeros held {got['zero_ok']}, "
+                                     f"elements at eps {got['at_eps']}")
+            expect_counts(what, got["counts"],
+                          _train_launches(_mesh_train_cfg(arch, got["layers"]), 1))
         records["f32"][arch] = {"mesh": shape, "batch": (b, s), **worst,
-                                **{k: rank0[k] for k in ("loss", "ref_loss", "gnorm",
+                                **{k: rank0[k] for k in ("loss", "ref_loss", "gnorm", "at_eps",
                                                          "ref_gnorm")}}
-        log(f"phase 15 ({card}; {backend}): {arch} x{rank0['layers']} f32 over {shape}, "
+        log(f"{tag} ({card}; {backend}): {arch} x{rank0['layers']} f32 over {shape}, "
             f"{b} x {s}: one step, loss {rank0['loss']!r} (one card {rank0['ref_loss']!r}), "
             f"grad norm {rank0['gnorm']!r} (one card {rank0['ref_gnorm']!r}); worst over "
             f"ranks ||err||/||ref|| of a gradient shard {worst['grad_rel']:.3e}, of an "
             f"updated param shard {worst['param_rel']:.3e} (limits {MTRAIN_GRAD_REL}, "
-            f"{MTRAIN_PARAM_REL})")
-    for name, arch, layers, shape, b, s in MTRAIN_RUNS:
+            f"{MTRAIN_PARAM_REL}); {sum(x['elements'] for x in rank0['at_eps'])} elements "
+            f"of {len(rank0['at_eps'])} leaves at AdamW's eps on rank 0, their start p + lr * "
+            f"step within {worst['start_rel']:.3e} over ranks (limit {MTRAIN_PARAM_REL}); "
+            f"those whose params differ by more: "
+            + "; ".join(f"{x['leaf']} {x['elements']} of {x['of']}, params "
+                        f"{x['param_rel']:.3e}, start {x['start_rel']:.3e}"
+                        for x in rank0["at_eps"] if x["param_rel"] > MTRAIN_PARAM_REL))
+    for name, arch, layers, shape, b, s in runs:
         got = ranks[0]["runs"][name]
         L = got["layers"]
         for r, rank in enumerate(ranks):
             run = rank["runs"][name]
             if not all(np.isfinite(run["losses"])):
-                raise AssertionError(f"phase 15: {name} rank {r}: losses {run['losses']}")
-            expect_counts(f"phase 15: {name} over {shape}, {MTRAIN_STEPS} steps, rank {r}",
-                          run["counts"], _train_launches(arch, L, MTRAIN_STEPS))
+                raise AssertionError(f"{tag}: {name} rank {r}: losses {run['losses']}")
+            expect_counts(f"{tag}: {name} over {shape}, {MTRAIN_STEPS} steps, rank {r}",
+                          run["counts"], _train_launches(_mesh_train_cfg(arch, L), MTRAIN_STEPS))
             for i, c in enumerate(run["collectives"]):
-                if c != predicted[name]:
-                    raise AssertionError(f"phase 15: {name} rank {r} step {i}: collectives "
-                                         f"{c} != predicted {predicted[name]}")
+                if c != run["dryrun"]:
+                    raise AssertionError(f"{tag}: {name} rank {r} step {i}: collectives "
+                                         f"{c} != the dry-run's {run['dryrun']}")
         step_s = sorted(got["step_s"][1:])[len(got["step_s"][1:]) // 2]
         peak = [rank["runs"][name]["peak_gb"] for rank in ranks]
         records["runs"][name] = {
@@ -2686,31 +2804,85 @@ def phase_mesh_train(card):
             "step_s": step_s, "first_step_s": got["step_s"][0], "tokens_per_s": b * s / step_s,
             "peak_gb": peak, "state_gb": got["state_gb"], "build_s": got["build_s"],
             "counts": got["counts"], "collectives": got["collectives"][-1],
-            "wire_bytes": got["wire_bytes"]}
-        log(f"phase 15 ({card}; {backend}, {MESH_RANKS} ranks): {name} over "
+            "wire_bytes": got["wire_bytes"], "dryrun_s": got["dryrun_s"]}
+        log(f"{tag} ({card}; {backend}, {MESH_RANKS} ranks): {name} over "
             f"{dict(zip(('data', 'model'), shape))}, bf16, {b} x {s}, remat: losses "
             f"{got['losses']}; step {step_s:.4f} s (median of steps 2-{MTRAIN_STEPS}; first "
             f"{got['step_s'][0]:.4f} s), {b * s / step_s:.0f} tokens/s; peak per rank "
             f"{[round(x, 2) for x in peak]} GB, train state {got['state_gb']:.2f} GB a rank "
             f"(built rank by rank in {got['build_s']:.1f} s); launches per rank "
-            f"{got['counts']}; collectives of a step per rank, as predicted: "
-            f"{got['collectives'][-1]}; on the wire by the ring model (hlo_analysis), "
-            f"forward {got['wire_bytes']['forward']:.0f} B, backward "
-            f"{got['wire_bytes']['backward']:.0f} B")
-    ck = [rank["ckpt"] for rank in ranks]
-    if ck[0]["resumed"] != ck[0]["losses"][2:] or not ck[0]["leaves_equal"]:
-        raise AssertionError(f"phase 15: checkpoint: resumed {ck[0]['resumed']} vs "
-                             f"{ck[0]['losses'][2:]}, global leaves equal "
-                             f"{ck[0]['leaves_equal']}")
-    records["ckpt"] = {k: ck[0][k] for k in ck[0]}
-    log(f"phase 15: yi-9b x{MTRAIN_F32_LAYERS} f32 through launch.train.run_rank over "
-        f"{MTRAIN_CKPT[0]}: losses {ck[0]['losses']}; checkpoint at step 2 "
-        f"({ck[0]['checkpoint_gb']:.2f} GB, the run with its save {ck[0]['run_s']:.1f} s); "
-        f"--resume (with its restore {ck[0]['resume_s']:.1f} s) gave {ck[0]['resumed']} = step "
-        f"3's bit for bit; restored under {MTRAIN_CKPT[1]} in {ck[0]['restore_other_s']:.1f} s, "
-        f"its {ck[0]['leaves']} global leaves gathered equal to one card's restore bit for bit")
-    log(f"phase 15: {time.perf_counter() - t_phase:.1f}s")
+            f"{got['counts']}; collectives of a step per rank, equal to the dry-run's "
+            f"(counted in {got['dryrun_s']:.1f} s): {got['collectives'][-1]}; on the wire by "
+            f"the ring model (hlo_analysis), forward {got['wire_bytes']['forward']:.0f} B, "
+            f"backward {got['wire_bytes']['backward']:.0f} B")
+    if checkpoint:
+        ck = [rank["ckpt"] for rank in ranks]
+        if ck[0]["resumed"] != ck[0]["losses"][2:] or not ck[0]["leaves_equal"]:
+            raise AssertionError(f"{tag}: checkpoint: resumed {ck[0]['resumed']} vs "
+                                 f"{ck[0]['losses'][2:]}, global leaves equal "
+                                 f"{ck[0]['leaves_equal']}")
+        records["ckpt"] = {k: ck[0][k] for k in ck[0]}
+        log(f"{tag}: yi-9b x{MTRAIN_F32_LAYERS} f32 through launch.train.run_rank over "
+            f"{MTRAIN_CKPT[0]}: losses {ck[0]['losses']}; checkpoint at step 2 "
+            f"({ck[0]['checkpoint_gb']:.2f} GB, the run with its save {ck[0]['run_s']:.1f} s); "
+            f"--resume (with its restore {ck[0]['resume_s']:.1f} s) gave {ck[0]['resumed']} = "
+            f"step 3's bit for bit; restored under {MTRAIN_CKPT[1]} in "
+            f"{ck[0]['restore_other_s']:.1f} s, its {ck[0]['leaves']} global leaves gathered "
+            f"equal to one card's restore bit for bit")
+    log(f"{tag}: {time.perf_counter() - t_phase:.1f}s")
     return records
+
+
+# ----------------------------------------------------------- phase 16
+def mesh16_runs_spec(seed=16):
+    """Phase 16's serving runs: (name, config, mesh shape, dtype, prompt
+    batches, logits tolerance).  mamba2-780m, hymba-1.5b (past its window),
+    whisper-large-v3 over seeded frames and llava-next-mistral-7b with
+    seeded image embeddings at their full configs over (1, 4) in bf16
+    (M16_SERVE); then each at full width in f32, cut to M16_F32_LAYERS but
+    mamba2 (whole).  mamba2's bf16 tolerance is the name of its f32 run:
+    ``phase_mesh`` derives it from the two single-card runs (M16_ROUNDING)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import prompt_batch
+
+    runs = []
+    for f32 in (False, True):
+        for arch, (b, n) in M16_SERVE.items():
+            cfg = get_config(arch)
+            mamba2 = arch == "mamba2-780m"
+            batches = [prompt_batch(cfg, b, n, seed=s)
+                       for s in (M16_MAMBA2_SEEDS if mamba2 else (seed,))]
+            if f32 and not mamba2:
+                cut = {"num_layers": M16_F32_LAYERS}
+                if cfg.is_encoder_decoder:
+                    cut["encoder_layers"] = M16_F32_LAYERS
+                cfg = dataclasses.replace(cfg, **cut)
+            if f32:
+                tol = MESH_LOGIT_TOL["float32"]
+            else:
+                tol = f"{arch} x{cfg.num_layers} f32" if mamba2 else MESH_LOGIT_TOL["bfloat16"]
+            runs.append((f"{arch} x{cfg.num_layers} f32" if f32 else arch, cfg, (1, 4),
+                         torch.float32 if f32 else torch.bfloat16, batches, tol))
+    return runs
+
+
+def phase_mesh16(card):
+    """Phase 16: the SSM, hybrid, encoder-decoder and VLM families under a
+    mesh of MESH_RANKS spawned ranks.  Serving over (1, 4) as phase 14
+    (``phase_mesh`` on ``mesh16_runs_spec``): logits and tokens against one
+    card under the margin rule, each rank's launches exact, each rank's
+    collectives equal to the dry-run's; the f32 cuts' compared tokens all
+    equal.  Training over (2, 2) as phase 15 (``phase_mesh_train`` on
+    M16_TRAIN_F32 and M16_TRAIN).  Returns both phases' records."""
+    t0 = time.perf_counter()
+    serve = phase_mesh(card, mesh16_runs_spec(), "phase 16 serving")
+    train = phase_mesh_train(card, M16_TRAIN_F32, M16_TRAIN, "phase 16 training")
+    log(f"phase 16: {time.perf_counter() - t0:.1f}s")
+    return {"serve": serve, "train": train}
 
 
 # ------------------------------------------------------------ phase 5
@@ -2764,22 +2936,6 @@ def bound_ms(nbytes, flops, peak=PEAK_BF16_FLOPS):
         ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak else "operations")
 
 
-def ssd_flops(b, s, nh, hd, ns, chunk):
-    """Operations the SSD scan needs at ``chunk`` over this run's rows (2
-    per multiply-add).  B and C are shared by every head (one group), so a
-    chunk of lc rows takes its lc(lc+1)/2 visible C.B dots (ns each) once;
-    each head adds their decay factors (one multiply each), the scores'
-    product with x (hd each), the prior state's read (lc x hd x ns) and
-    the state update (hd x ns x lc).  Work the kernel repeats (the scores
-    in every head and hd tile) is not counted."""
-    total = 0
-    for c0 in range(0, s, chunk):
-        lc = min(chunk, s - c0)
-        tri = lc * (lc + 1) // 2
-        total += 2 * tri * ns + nh * (tri + 2 * tri * hd + 4 * lc * hd * ns)
-    return b * total
-
-
 def launch_us(fn, pattern, calls=20):
     """Device time of each kernel that ``fn`` launches, by name (the first
     match of ``pattern`` in the profiler's kernel name), in us a call:
@@ -2807,13 +2963,11 @@ def ssd_time_row(gen, dev, s, nh, hd, ns, what):
     """ssd_scan's bound is the card's with tensor cores (TF32 at 495 TFLOP/s,
     the kernel's products); ``bound_f32_fma_ms`` keeps PR 12-13's figure at
     the f32 FMA rate of 67 TFLOP/s for the log line, so the rows compare."""
-    from repro_torch.kernels.ssd_scan.ops import KERNEL_CHUNK, ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import KERNEL_CHUNK, ssd_scan, work
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     x, dt, a, B, C, d_skip = ssd_inputs(gen, dev, 1, s, nh, hd, ns)
-    nbytes = 2 * x.numel() * 4 + dt.numel() * 4 + 2 * B.numel() * 4 + 2 * nh * 4 \
-        + nh * hd * ns * 4
-    flops = ssd_flops(1, s, nh, hd, ns, KERNEL_CHUNK)
+    flops, nbytes = work(1, s, nh, hd, ns, 4)
     return dict(
         ms=time_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
         call_ms=call_ms(lambda: ssd_scan(x, dt, a, B, C, d_skip)),
@@ -2841,7 +2995,7 @@ def ssd_train_rows(gen, dev):
     kept graph (``torch.autograd.grad``).  No library call computes it."""
     import torch
 
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_backward
+    from repro_torch.kernels.ssd_scan.ops import ssd_flops, ssd_scan, ssd_scan_backward
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     b, s, nh, hd, ns, chunk = 2, 4096, MAMBA["nh"], MAMBA["hd"], MAMBA["ns"], 128
@@ -2891,7 +3045,7 @@ def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI, lse=False):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
+    from repro_torch.kernels.paged_attention.ops import paged_attention, partitions, work
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
     h, g, d, bs = widths["h"], widths["g"], widths["d"], 32
@@ -2907,7 +3061,6 @@ def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI, lse=False):
     kf, vf = kf.transpose(1, 2).contiguous(), vf.transpose(1, 2).contiguous()
     mask = (torch.arange(t_max, device=dev)[None] < ctx[:, None])[:, None, None, :]
     qf = q[:, :, None, :]
-    kv_read = sum(ctx_list) * g * d * 2 * 2
     pages, _ = partitions(b, g, h // g, per, sm_count(dev))
     paged_attention.last_grid = None
     row = dict(
@@ -2917,8 +3070,7 @@ def paged_time_row(gen, dev, b, per, ctx_list, what, widths=YI, lse=False):
                                                      return_lse=lse)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qf, kf, vf, attn_mask=mask)),
-        bound=bound_ms(kv_read + 2 * q.numel() * 2 + tables.numel() * 4 + b * 4
-                       + (b * h * 4 if lse else 0), 4 * h * d * sum(ctx_list)))
+        bound=bound_ms(*reversed(work(b, h, g, d, sum(ctx_list), per, 2, lse=lse))))
     if lse:
         row["ms_without_lse"] = time_ms(lambda: paged_attention(q, kp, vp, tables, ctx))
     grid = paged_attention.last_grid  # as the wrapper launched it in the timed calls
@@ -2937,7 +3089,7 @@ def prefill_time_row(gen, dev, s, what, plain_iters=50, widths=YI, t=None, causa
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill, work
     from repro_torch.kernels.flash_prefill.ref import dense_ref
 
     h, g, d = widths["h"], widths["g"], widths["d"]
@@ -2949,7 +3101,6 @@ def prefill_time_row(gen, dev, s, what, plain_iters=50, widths=YI, t=None, causa
     qs = qp.transpose(1, 2).contiguous()
     ks = kk.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
     vs = vv.repeat_interleave(h // g, dim=2).transpose(1, 2).contiguous()
-    visible = s * (s + 1) // 2 if causal else s * t
     row = dict(
         ms=time_ms(lambda: flash_prefill(qp, kk, vv, causal=causal)),
         call_ms=call_ms(lambda: flash_prefill(qp, kk, vv, causal=causal)),
@@ -2957,7 +3108,7 @@ def prefill_time_row(gen, dev, s, what, plain_iters=50, widths=YI, t=None, causa
                          warmup=min(3, plain_iters)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=causal)),
-        bound=bound_ms((2 * qp.numel() + 2 * kk.numel()) * 2, 4 * h * d * visible),
+        bound=bound_ms(*reversed(work(1, s, t, h, g, d, 2, causal=causal))),
         shape=f"{what}: b=1 s={s} t={t} h={h} g={g} d={d} "
               f"{'causal' if causal else 'non-causal'} bf16"
               + (f"; plain version timed over {plain_iters} calls" if plain_iters != 50 else ""))
@@ -3058,6 +3209,22 @@ def phase_times(gen, dev):
         prefill_time_row(gen, dev, LLAVA["vision"] + LLAVA_PROMPTS[0],
                          "llava-next-mistral-7b image + text prefill", widths=LLAVA,
                          plain_iters=5)]
+    # phase 16's rank-local shapes under (1, 4): whisper's 5 heads a rank (the
+    # encoder, a decode step's cross-attention, the split decode with lse),
+    # llava's image + text prefill on 8 heads a rank
+    w5 = dict(WHISPER, h=5, g=5)
+    n16 = M16_SERVE["whisper-large-v3"][1]
+    rows["flash_prefill"]["also"] += [
+        prefill_time_row(gen, dev, frames, "whisper-large-v3 encoder, a rank of (1, 4)",
+                         widths=w5, causal=False, plain_iters=5),
+        prefill_time_row(gen, dev, 1, "whisper-large-v3 decode cross-attention, a rank of "
+                         "(1, 4)", widths=w5, t=frames, causal=False),
+        prefill_time_row(gen, dev, LLAVA["vision"] + M16_SERVE["llava-next-mistral-7b"][1],
+                         "llava-next-mistral-7b image + text prefill, a rank of (1, 4)",
+                         widths=dict(LLAVA, h=8, g=2), plain_iters=5)]
+    rows["paged_attention"]["also"].append(paged_time_row(
+        gen, dev, 2, 5, [n16 + MAX_NEW, 0], "whisper-large-v3 rank-local slice under TP 4",
+        widths=w5, lse=True))
     rows["flash_prefill"]["training"] = train_time_rows(gen, dev)
     return rows | other_time_rows(gen, dev)
 
@@ -3104,6 +3271,13 @@ def other_time_rows(gen, dev):
     rows["ssd_scan"]["also"] = [ssd_time_row(
         gen, dev, max(HYMBA_PROMPTS) + HYMBA["meta"], HYMBA["nh"], HYMBA["hd"],
         HYMBA["ns"], "hymba-1.5b")]
+    # phase 16's rank-local shapes under (1, 4): mamba2's 12 heads a rank, and
+    # hymba's 50 heads by 16 of head_dim
+    rows["ssd_scan"]["also"] += [
+        ssd_time_row(gen, dev, M16_SERVE["mamba2-780m"][1], MAMBA["nh"] // 4, MAMBA["hd"],
+                     MAMBA["ns"], "mamba2-780m, a rank of (1, 4)"),
+        ssd_time_row(gen, dev, M16_SERVE["hymba-1.5b"][1] + HYMBA["meta"], HYMBA["nh"],
+                     HYMBA["hd"] // 4, HYMBA["ns"], "hymba-1.5b, a rank of (1, 4)")]
     rows["ssd_scan"]["training"] = ssd_train_rows(gen, dev)
     return rows
 
@@ -3143,9 +3317,10 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["all", "14", "15"], default="all",
-                    help="14 (15): the build, paged_attention's lse checks and phase 14 "
-                         "(15) alone (the mesh over every card of the machine)")
+    ap.add_argument("--phase", choices=["all", "14", "15", "16"], default="all",
+                    help="14 (15, 16): the build, paged_attention's lse checks (and for 16 "
+                         "the rank-local kernel checks) and that phase alone (the mesh "
+                         "over every card of the machine)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3164,8 +3339,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     lse_err = check_paged_lse(gen, dev)
-    if args.phase in ("14", "15"):
-        phase = phase_mesh if args.phase == "14" else phase_mesh_train
+    if args.phase in ("14", "15", "16"):
+        if args.phase == "16":
+            check_rank_local(gen, dev)
+        phase = {"14": phase_mesh, "15": phase_mesh_train, "16": phase_mesh16}[args.phase]
         log(f"phase {args.phase} records: {json.dumps(phase(card), default=str)}")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3179,6 +3356,7 @@ def main(argv=None) -> int:
         "kv_pull_dequant": check_kv_pull_dequant(gen, dev),
         "ssd_scan": check_ssd_scan(gen, dev),
     }
+    local_errs = check_rank_local(gen, dev)
     flash_lse_err, bwd_err = check_flash_training(gen, dev)
     ssd_grad_err, ssd_bwd_peak = check_ssd_training(gen, dev)
     log(f"phase 2: every kernel matches its plain version; max |err| at full width "
@@ -3237,6 +3415,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mesh_train = phase_mesh_train(card)
     log(f"phase 15: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    mesh16 = phase_mesh16(card)
+    log(f"phase 16: {time.perf_counter() - t0:.1f}s")
     # each kernel's launches in the new phases' runs, per request where the
     # run served several
     later = {
@@ -3256,6 +3437,10 @@ def main(argv=None) -> int:
            for run, r in mesh_runs.items()},
         **{f"phase 15 {run} train under mesh {r['mesh']}, {MTRAIN_STEPS} steps, each of "
            f"{MESH_RANKS} ranks": r["counts"] for run, r in mesh_train["runs"].items()},
+        **{f"phase 16 {run} under mesh {r['mesh']}, each of {MESH_RANKS} ranks": r["counts"]
+           for run, r in mesh16["serve"].items()},
+        **{f"phase 16 {run} train under mesh {r['mesh']}, {MTRAIN_STEPS} steps, each of "
+           f"{MESH_RANKS} ranks": r["counts"] for run, r in mesh16["train"]["runs"].items()},
     }
 
     t0 = time.perf_counter()
@@ -3277,6 +3462,7 @@ def main(argv=None) -> int:
         extra["launches_later_phases"] = {run: c[name] for run, c in later.items()}
         if name == "kv_pull":
             extra["bytes_pulled_llava"] = llava_pulled
+        extra["rank_local_max_abs_err"] = local_errs.get(name)
         if name == "paged_attention":
             extra["lse_max_abs_err"] = lse_err
             extra["launches_lse_phase_14"] = {run: r["counts"]["paged_attention_lse"]
@@ -3344,6 +3530,7 @@ def main(argv=None) -> int:
     log(f"all phases in {time.perf_counter() - t_start:.1f}s")
     log(f"phase 14 records: {json.dumps(mesh_runs, default=str)}")
     log(f"phase 15 records: {json.dumps(mesh_train, default=str)}")
+    log(f"phase 16 records: {json.dumps(mesh16, default=str)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

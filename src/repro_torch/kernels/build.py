@@ -8,6 +8,12 @@ and flags, and is built at first use: a fresh checkout needs nothing but
 ``nvcc``.  The sources compile in parallel, one ``nvcc`` each, then link.
 
 Nothing here runs at import time; ``library()`` builds on first call.
+
+On meta tensors (the dry-run, ``launch.dryrun``) a wrapper launches
+nothing and runs no plain version: it returns outputs of the right shapes
+and dtypes and adds its kernel's work to ``META_WORK`` (``count_meta``),
+the operations and bytes of the bound formula its ``work`` function
+states.
 """
 from __future__ import annotations
 
@@ -20,8 +26,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "build", "check", "check_design", "on_cuda", "stream_ptr", "CSRC",
-           "BUILD_DIR"]
+__all__ = ["library", "build", "check", "check_design", "on_cuda", "on_meta", "count_meta",
+           "META_WORK", "stream_ptr", "CSRC", "BUILD_DIR"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -161,6 +167,31 @@ def on_cuda(name: str, *tensors) -> bool:
     if dev.type == "cuda":
         return True
     raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+def on_meta(name: str, *tensors) -> bool:
+    """True when every tensor is a meta tensor (shapes only: the wrapper
+    returns outputs of the right shapes and counts its kernel's work);
+    False when none is; a mix raises."""
+    meta = [t.is_meta for t in tensors]
+    if any(meta) and not all(meta):
+        raise ValueError(f"{name}: meta tensors mixed with tensors on a device")
+    return all(meta)
+
+
+# the work of the kernel calls made on meta tensors since the last reset:
+# {"flops", "bytes", "calls": {name: n}}
+META_WORK: dict = {"flops": 0, "bytes": 0, "calls": {}}
+
+
+def count_meta(name: str, flops: int, nbytes: int) -> None:
+    META_WORK["flops"] += flops
+    META_WORK["bytes"] += nbytes
+    META_WORK["calls"][name] = META_WORK["calls"].get(name, 0) + 1
+
+
+def reset_meta() -> None:
+    META_WORK.update(flops=0, bytes=0, calls={})
 
 
 def stream_ptr(device) -> int:

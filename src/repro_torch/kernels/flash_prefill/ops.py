@@ -10,7 +10,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_prefill.ref import dense_ref
 
-__all__ = ["flash_prefill", "k_tiles"]
+__all__ = ["flash_prefill", "k_tiles", "visible_pairs", "work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BF16_HEAD_DIMS = (32, 64, 128)
@@ -43,6 +43,30 @@ def k_tiles(q_lo: int, s: int, t: int, tile: int, *, causal: bool, window: int =
     return [j for j in range(n_kt) if j < n_pref or j >= j0]
 
 
+def visible_pairs(s: int, t: int, *, causal: bool, window: int = 0, prefix: int = 0) -> int:
+    """The (query, key) pairs of one head that the mask leaves visible:
+    row i sees keys below min(i + 1, t) (causal) or t, from i - window + 1
+    on (a window), and the keys below ``prefix`` always."""
+    i = torch.arange(s, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=t) if causal else torch.full_like(i, t)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    seen = torch.clamp(hi - lo, min=0)
+    if window and prefix:
+        seen = seen + torch.clamp(torch.minimum(torch.minimum(lo, hi),
+                                                torch.full_like(i, prefix)), min=0)
+    return int(seen.sum())
+
+
+def work(b: int, s: int, t: int, h: int, g: int, d: int, itemsize: int, *, causal: bool,
+         window: int = 0, prefix: int = 0, lse: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one call, the bound's formula: 4·d a visible
+    pair and head (q·k and p·v, 2 per multiply-add); q, k, v read once,
+    the output (and lse) written once."""
+    pairs = visible_pairs(s, t, causal=causal, window=window, prefix=prefix)
+    nbytes = (2 * b * s * h * d + 2 * b * t * g * d) * itemsize + (b * h * s * 4 if lse else 0)
+    return 4 * b * h * d * pairs, nbytes
+
+
 def flash_prefill(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                   prefix_len: int = 0, return_lse: bool = False):
     """q [b, s, h, d]; k, v [b, t, g, d] -> [b, s, h, d] in q.dtype.  Any
@@ -60,6 +84,14 @@ def flash_prefill(q, k, v, *, causal: bool = True, sliding_window: int = 0,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_prefill: q, k, v must share f32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if build.on_meta("flash_prefill", q, k, v):
+        build.count_meta("flash_prefill", *work(
+            b, s, t, h, g, d, q.element_size(), causal=causal, window=sliding_window,
+            prefix=prefix_len, lse=return_lse))
+        out = torch.empty_like(q)
+        if return_lse:
+            return out, torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        return out
     if not build.on_cuda("flash_prefill", q, k, v):
         return dense_ref(q, k, v, causal=causal, sliding_window=sliding_window,
                          prefix_len=prefix_len, return_lse=return_lse)

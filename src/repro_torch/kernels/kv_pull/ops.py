@@ -11,7 +11,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
 
-__all__ = ["kv_pull", "kv_pull_dequant"]
+__all__ = ["kv_pull", "kv_pull_dequant", "work"]
 
 _DST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,9 +27,26 @@ def _check_pages(name, src_pages, dst_pages, src_ids, dst_ids):
         raise TypeError(f"{name}: ids must be int32")
 
 
+def work(n_txn: int, src_page_bytes: int, dst_page_bytes: int) -> tuple[int, int]:
+    """(operations, bytes) of one call moving ``n_txn`` pages, the bound's
+    formula: each source page read once, each destination page written
+    once, the ids (and a dequant's scales, 4 bytes a page) read."""
+    return 0, n_txn * (src_page_bytes + dst_page_bytes + 8)
+
+
+def _meta(name, src_pages, dst_pages, src_ids, scaled=False):
+    page = src_pages[0].numel() if len(src_pages) else 0
+    flops, nbytes = work(src_ids.shape[0], page * src_pages.element_size(),
+                         page * dst_pages.element_size())
+    build.count_meta(name, flops, nbytes + (4 * src_ids.shape[0] if scaled else 0))
+    return dst_pages
+
+
 def kv_pull(src_pages, dst_pages, src_ids, dst_ids):
     """dst_pages[dst_ids[i]] = src_pages[src_ids[i]]; pages of any dtype."""
     _check_pages("kv_pull", src_pages, dst_pages, src_ids, dst_ids)
+    if build.on_meta("kv_pull", src_pages, dst_pages, src_ids, dst_ids):
+        return _meta("kv_pull", src_pages, dst_pages, src_ids)
     if not build.on_cuda("kv_pull", src_pages, dst_pages, src_ids, dst_ids):
         return kv_pull_ref(src_pages, dst_pages, src_ids, dst_ids)
     for t in (src_pages, dst_pages, src_ids, dst_ids):
@@ -58,6 +75,8 @@ def kv_pull_dequant(src_pages, dst_pages, src_ids, dst_ids, scales):
                         f"{src_pages.dtype} -> {dst_pages.dtype}")
     if scales.dtype != torch.float32 or scales.shape != src_ids.shape:
         raise TypeError("kv_pull_dequant: scales must be f32 [n_txn]")
+    if build.on_meta("kv_pull_dequant", src_pages, dst_pages, src_ids, dst_ids, scales):
+        return _meta("kv_pull_dequant", src_pages, dst_pages, src_ids, scaled=True)
     if not build.on_cuda("kv_pull_dequant", src_pages, dst_pages, src_ids, dst_ids,
                          scales):
         return kv_pull_dequant_ref(src_pages, dst_pages, src_ids, dst_ids, scales)

@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
-__all__ = ["paged_attention", "partitions"]
+__all__ = ["paged_attention", "partitions", "work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the kernel's d: 8 elements per lane, d / 8 lanes per key
@@ -69,6 +69,17 @@ def _validate(q, k_pages, v_pages, block_tables, context_lens):
         raise TypeError("paged_attention: block_tables and context_lens must be int32")
 
 
+def work(b: int, h: int, g: int, d: int, keys: int, per_seq: int, itemsize: int, *,
+         lse: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of one call over ``keys`` context tokens in all
+    (summed over the batch), the bound's formula: 4·h·d a key (q·k and
+    p·v); each key's k and v read once, q read and the output (and lse)
+    written once, the block tables and contexts read."""
+    nbytes = keys * g * d * itemsize * 2 + 2 * b * h * d * itemsize + b * per_seq * 4 + b * 4 \
+        + (b * h * 4 if lse else 0)
+    return 4 * h * d * keys, nbytes
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
                     return_lse: bool = False):
     """q [b, h, d]; k/v pages [b, per_seq, bs, g, d]; block_tables
@@ -76,6 +87,16 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     counting the current token -> [b, h, d] in q.dtype, and with
     ``return_lse`` (out, lse [b, h] f32)."""
     _validate(q, k_pages, v_pages, block_tables, context_lens)
+    if build.on_meta("paged_attention", q, k_pages, v_pages, block_tables, context_lens):
+        # the contexts' values are not there: every page counts as full
+        b, h, d = q.shape
+        _, per_seq, bs, g, _ = k_pages.shape
+        build.count_meta("paged_attention", *work(b, h, g, d, b * per_seq * bs, per_seq,
+                                                  q.element_size(), lse=return_lse))
+        out = torch.empty_like(q)
+        if return_lse:
+            return out, torch.empty((b, h), dtype=torch.float32, device=q.device)
+        return out
     if not build.on_cuda("paged_attention", q, k_pages, v_pages, block_tables,
                          context_lens):
         return paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,

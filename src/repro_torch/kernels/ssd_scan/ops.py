@@ -12,13 +12,15 @@ oracle (``repro.models.ssm._ssd_chunked``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_backward, ssd_scan_ref
 
 __all__ = ["ssd_scan", "ssd_scan_backward", "SSDScan", "KERNEL_CHUNK", "HD_TILE", "THREADS",
-           "DESIGN", "chunking"]
+           "DESIGN", "chunking", "ssd_flops", "work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel's design as this module models it; ``ssd_scan_design`` in the
@@ -33,6 +35,33 @@ def chunking(s: int, chunk: int) -> tuple[int, int]:
     """(internal chunk l, chunks nc) the kernel scans ``s`` rows in."""
     l = min(s, chunk, KERNEL_CHUNK)
     return l, -(-s // l)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_flops(b: int, s: int, nh: int, hd: int, ns: int, chunk: int) -> int:
+    """Operations the SSD scan needs at ``chunk`` over this run's rows (2
+    per multiply-add).  B and C are shared by every head (one group), so a
+    chunk of lc rows takes its lc(lc+1)/2 visible C.B dots (ns each) once;
+    each head adds their decay factors (one multiply each), the scores'
+    product with x (hd each), the prior state's read (lc x hd x ns) and
+    the state update (hd x ns x lc).  Work the kernel repeats (the scores
+    in every head and hd tile) is not counted."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        tri = lc * (lc + 1) // 2
+        total += 2 * tri * ns + nh * (tri + 2 * tri * hd + 4 * lc * hd * ns)
+    return b * total
+
+
+def work(b: int, s: int, nh: int, hd: int, ns: int, itemsize: int, chunk: int = KERNEL_CHUNK
+         ) -> tuple[int, int]:
+    """(operations, bytes) of one call, the bound's formula: ``ssd_flops``
+    at the kernel's chunk; x read and y written once (``itemsize``), dt,
+    B, C, a and D read and the final state written once (f32)."""
+    nbytes = 2 * b * s * nh * hd * itemsize + b * s * nh * 4 + 2 * b * s * ns * 4 + 2 * nh * 4 \
+        + b * nh * hd * ns * 4
+    return ssd_flops(b, s, nh, hd, ns, min(chunk, KERNEL_CHUNK)), nbytes
 
 
 def _validate(x, dt, a, B, C, d_skip):
@@ -71,7 +100,14 @@ def ssd_scan(x, dt, a, B, C, d_skip, *, chunk: int = 128):
 
 def _forward(x, dt, a, B, C, d_skip, chunk):
     """The kernel on CUDA tensors (a build or launch error raises), the
-    plain version on CPU tensors."""
+    plain version on CPU tensors (on meta tensors, outputs of their
+    shapes and the kernel's work counted)."""
+    if build.on_meta("ssd_scan", x, dt, a, B, C, d_skip):
+        b, s, nh, hd = x.shape
+        ns = B.shape[-1]
+        build.count_meta("ssd_scan", *work(b, s, nh, hd, ns, x.element_size(), chunk))
+        return (torch.empty_like(x),
+                torch.empty((b, nh, hd, ns), dtype=torch.float32, device=x.device))
     if not build.on_cuda("ssd_scan", x, dt, a, B, C, d_skip):
         return ssd_scan_ref(x, dt, a, B, C, d_skip, chunk=chunk)
     for t in (x, dt, a, B, C, d_skip):

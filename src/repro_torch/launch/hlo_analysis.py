@@ -49,6 +49,17 @@ class CollectiveStats:
     def total_bytes(self) -> int:
         return sum(self.by_kind_bytes.values())
 
+    @property
+    def wire_bytes_bf16_adjusted(self) -> float:
+        """The wire bytes with every f32 payload moved in bf16 (its share
+        halved).  The reference halves its f32 share because XLA:CPU
+        emulates bf16 in f32; the port records each collective in the dtype
+        it runs in, and its f32 payloads are real: the row-parallel and
+        embedding sums, which it keeps in f32 on purpose, and gradient
+        sums.  So here this is a bound for a deployment that would sum
+        activations in bf16, not a correction."""
+        return self.wire_bytes - 0.5 * self.f32_wire_bytes
+
 
 def collective_stats(records) -> CollectiveStats:
     """``models.sharding.CollectiveRecord``s → stats by kind."""

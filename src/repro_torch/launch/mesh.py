@@ -16,7 +16,9 @@ index on each axis, ``groups`` the process group of each axis (the ranks
 that differ from this one only on that axis), from a
 ``torch.distributed.device_mesh.DeviceMesh``.  ``Mesh.view`` makes the
 same object for any rank of a shape without process groups, for
-placement alone.
+placement alone; with ``count_only=True`` the model code also runs on it,
+every collective of ``models.sharding`` returning a result of its shape
+and recording itself without moving anything (``launch.dryrun``).
 
 The collective backend is chosen once, explicitly: ``nccl`` when each
 rank has a card of its own, ``gloo`` otherwise (NCCL refuses two ranks on
@@ -42,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "build_params", "choose_backend", "init_distributed", "make_mesh",
-           "make_local_mesh", "make_production_mesh", "spawn"]
+           "make_local_mesh", "make_production_mesh", "prompt_batch", "spawn"]
 
 
 @dataclasses.dataclass
@@ -54,17 +56,21 @@ class Mesh:
     backend: str | None = None
     device: torch.device = torch.device("cpu")   # where this rank computes
     device_mesh: object = None
+    count_only: bool = False
 
     @classmethod
-    def view(cls, shape: dict[str, int], rank: int, *, device="cpu") -> "Mesh":
+    def view(cls, shape: dict[str, int], rank: int, *, device="cpu",
+             count_only: bool = False) -> "Mesh":
         """Rank ``rank``'s view of a mesh of ``shape`` (axis name -> size,
-        row-major over the names), without process groups."""
+        row-major over the names), without process groups; ``count_only``:
+        collectives over it give results of their shapes and are counted,
+        not run."""
         coords, rest = {}, rank
         for name in reversed(list(shape)):
             coords[name] = rest % shape[name]
             rest //= shape[name]
         return cls(tuple(shape), dict(shape), {n: coords[n] for n in shape},
-                   device=torch.device(device))
+                   device=torch.device(device), count_only=count_only)
 
     @property
     def size(self) -> int:
@@ -189,9 +195,26 @@ def build_params(model, mesh, *, seed: int = 0, dtype=None, fold_model: bool = F
     return params
 
 
-def _serve_rank(dev, rank, world_size, args):
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int = 0) -> dict:
+    """A seeded batch of random prompts for ``cfg``: tokens [batch,
+    prompt_len], and a VLM's image embeddings [batch, vision_tokens, d] or
+    an encoder-decoder's frames [batch, enc_seq, d] (f32, N(0, 1)), all
+    from ``seed``."""
     import numpy as np
 
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32))}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _serve_rank(dev, rank, world_size, args):
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import sharding
@@ -201,10 +224,8 @@ def _serve_rank(dev, rank, world_size, args):
     mesh = make_mesh(tuple(args.mesh), ("data", "model"), dev)
     model = build_model(cfg, device=dev)
     params = build_params(model, mesh, fold_model=cfg.fold_model_axis_into_dp)
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     prefill, serve = make_prefill_step(model, mesh=mesh), make_serve_step(model, mesh=mesh)
-    tok, state = prefill(params, {"tokens": torch.from_numpy(tokens)})
+    tok, state = prefill(params, prompt_batch(cfg, args.batch, args.prompt_len))
     out = [tok.tolist()]
     for _ in range(args.max_new):
         sharding.COUNTER.reset()
@@ -220,8 +241,9 @@ def _serve_rank(dev, rank, world_size, args):
 
 def main(argv: list[str] | None = None) -> None:
     """Serve a batch of random prompts greedily under a mesh of spawned
-    ranks (weights random from seed 0) and print each sequence's tokens
-    and one decode step's collectives."""
+    ranks (weights random from seed 0; a VLM's image embeddings and an
+    encoder-decoder's frames seeded too, ``prompt_batch``) and print each
+    sequence's tokens and one decode step's collectives."""
     import os
     import tempfile
 

@@ -43,7 +43,8 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import leaves, unflatten
 
 __all__ = [
-    "SHAPES", "ShapeSpec", "input_specs", "make_grad_step", "make_train_step",
+    "SHAPES", "ShapeSpec", "input_specs", "init_train_state_specs", "make_grad_step",
+    "make_train_step",
     "make_prefill_step",
     "make_serve_step", "greedy_generate", "cell_is_runnable", "skip_reason",
 ]
@@ -100,6 +101,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, model=None) -> dict[str, Any
     raise ValueError(shape.kind)
 
 
+def init_train_state_specs(model, opt_cfg: AdamWConfig):
+    """(params, AdamW state) as meta tensors: the full shapes and dtypes of
+    a train state, nothing allocated (the reference's ``eval_shape``s)."""
+    from repro_torch.optim.adamw import adamw_init
+
+    params = model.param_shapes()
+    return params, adamw_init(params, opt_cfg)
+
+
 def _loss_grads(model, params, batch, remat, batch_axes=()):
     """(loss, metrics, grads): the loss's gradients w.r.t. every leaf of
     ``params``, in the params' structure and dtypes."""
@@ -148,19 +158,25 @@ def make_grad_step(model, *, remat: bool = True, num_microbatches: int = 1, mesh
     Under a mesh: ``params`` are this rank's train shards
     (``shard_params(..., mode="train")``), ``batch`` the WHOLE global
     batch, of which the rank takes its rows (``data.sharded.rank_rows``;
-    the microbatches split those rows); the grads are this rank's shards
+    with microbatches, the global batch is split first, as the
+    reference's is, and the rank takes its rows of each microbatch, which
+    may be split over fewer DP axes than the whole batch); the grads are
+    this rank's shards
     of the global gradients: after the backward, each leaf's gradient is
     summed over the DP axes its train placement replicates it on
     (``launch.shardings.grad_reduce_axes``)."""
     reduce_axes = []   # each leaf's DP sum axes, placed at the first call
 
     def grad_step(params, batch):
+        def local(b):
+            if mesh is None:
+                return b, ()
+            return rank_rows(b, mesh, fold_model=sharding.tp_folded())
+
         with _in_mesh(mesh, model):
-            axes = ()
-            if mesh is not None:
-                batch, axes = rank_rows(batch, mesh, fold_model=sharding.tp_folded())
             if num_microbatches == 1:
-                loss, metrics, grads = _loss_grads(model, params, batch, remat, axes)
+                mine, axes = local(batch)
+                loss, metrics, grads = _loss_grads(model, params, mine, remat, axes)
             else:
                 def split(x):
                     x = torch.as_tensor(x)
@@ -172,9 +188,8 @@ def make_grad_step(model, *, remat: bool = True, num_microbatches: int = 1, mesh
                        for p in leaves(params)]
                 loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
                 for i in range(num_microbatches):
-                    loss, _, grads = _loss_grads(model, params,
-                                                 {k: v[i] for k, v in batch_mb.items()}, remat,
-                                                 axes)
+                    mb, axes = local({k: v[i] for k, v in batch_mb.items()})
+                    loss, _, grads = _loss_grads(model, params, mb, remat, axes)
                     for a, g in zip(acc, leaves(grads)):
                         a += g.float()
                     loss_sum = loss_sum + loss

@@ -9,7 +9,9 @@ checkpoint and restart.
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
         --device cpu --mesh 2,2 --batch 4 --seq 32                  # 4 gloo ranks
 
-Weights are random, from seed 0; the data is ``SyntheticLMDataset``.
+Weights are random, from seed 0; the data is ``SyntheticLMDataset``, and
+an encoder-decoder's frames are drawn beside it from (seed 0, step)
+(``frames_for``).
 Checkpoints carry (params, optimizer state, data state) in the
 reference's format (``repro_torch.ckpt``); ``--resume`` continues from
 the latest step.  ``--mesh D,M`` trains under a ("data", "model") mesh of
@@ -102,6 +104,21 @@ def main(argv: list[str] | None = None) -> dict[str, list[float]]:
     return _loop(args, cfg, model, params, opt_state, data, step_fn, start, n_params, 1)
 
 
+def frames_for(cfg, data) -> dict:
+    """``data``'s next batch, with seeded frame embeddings [b, enc_seq, d]
+    (f32, drawn from (0, the batch's step)) for an encoder-decoder, whose
+    loss needs them."""
+    import numpy as np
+
+    step = data.step
+    batch = data.next_batch()
+    if cfg.is_encoder_decoder:
+        rng = np.random.default_rng((0, step))
+        batch["frames"] = rng.standard_normal(
+            (len(batch["tokens"]), cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def _loop(args, cfg, model, params, opt_state, data, step_fn, start, n_params, n_devices,
           shardings=None, rank=0):
     """The steps from ``start``, each checkpointed every ``--ckpt-every``;
@@ -116,7 +133,7 @@ def _loop(args, cfg, model, params, opt_state, data, step_fn, start, n_params, n
     for step in range(start, args.steps):
         t_step = time.perf_counter()
         batch = {k: torch.as_tensor(v, device=model.device)
-                 for k, v in data.next_batch().items()}
+                 for k, v in frames_for(cfg, data).items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         step_s.append(time.perf_counter() - t_step)

@@ -10,8 +10,9 @@ where lse is each row's log-sum-exp of its scaled scores, and the
 backward recomputes the softmax from lse block by block over
 ``pair_schedule`` (``_bwd_scan``, after ``flash.py:121-169``), so nothing
 of size [s, t] outlives a block pair.  On the card the forward is the
-kernel with its ``lse`` output; on the CPU it is ``_fwd_scan``, the port
-of ``flash.py:76-119``.  The backward is plain torch on both: the
+kernel with its ``lse`` output (on meta tensors the kernel wrapper's
+shapes); on the CPU it is ``_fwd_scan``, the port of
+``flash.py:76-119``.  The backward is plain torch on both: the
 reference's is jnp, not a Pallas kernel.
 
 Two departures from the reference, both where a row sees no key at all
@@ -190,7 +191,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix, q_chunk, k_chunk):
         blk = _Blocks(q, k, causal, window, prefix, q_chunk, k_chunk)
-        if q.is_cuda:
+        if q.is_cuda or q.is_meta:
             out, lse = flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
                                      causal=causal, sliding_window=window,
                                      prefix_len=prefix, return_lse=True)

@@ -35,7 +35,10 @@ __all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "row_dense", "rmsnor
 
 def normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
     """Fill ``out`` (any dtype) with N(0, 1) * scale drawn in f32 from
-    ``gen`` — the reference's ``normal(f32) * scale -> PARAM_DTYPE``."""
+    ``gen`` — the reference's ``normal(f32) * scale -> PARAM_DTYPE``.  A
+    meta tensor is returned as it is (no draw: shapes only)."""
+    if out.is_meta:
+        return out
     draw = torch.randn(out.shape, generator=gen, device=out.device, dtype=torch.float32)
     out.copy_(draw.mul_(scale))
     return out
@@ -104,8 +107,15 @@ def column_input(x, w, d_out: int):
     """``x`` as the input of a product with the column-parallel weight
     ``w`` of full out dim ``d_out``: through ``copy_to_model`` when ``w``
     holds only this rank's columns (else the product runs whole on every
-    rank and its input's gradient is whole already)."""
-    return sharding.copy_to_model(x) if w.shape[-1] < d_out else x
+    rank and its input's gradient is whole already).  An input of another
+    dtype than ``w`` is promoted first, as ``dense`` promotes it, so that
+    the ranks' partial gradients are summed in the product's dtype and
+    rounded to the input's once, as on one device."""
+    if w.shape[-1] == d_out:
+        return x
+    if x.dtype != w.dtype:
+        x = x.to(torch.promote_types(x.dtype, w.dtype))
+    return sharding.copy_to_model(x)
 
 
 def swiglu(p, x, d_ff: int | None = None):

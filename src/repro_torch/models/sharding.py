@@ -59,6 +59,12 @@ Also the reference's GQA policy:
   * else if kv-groups divisible → shard groups;
   * else leave attention unsharded on heads (batch DP still applies).
 
+A count-only mesh (``launch.mesh.Mesh.view(..., count_only=True)``, the
+dry-run's view of a production mesh) has no process groups: there every
+collective returns a tensor of its result's shape and dtype, its values
+unset, and records in ``COUNTER`` what the real one records, its backward
+too.  The model code runs unchanged on it, on meta tensors as well.
+
 On a ``gloo`` mesh (ranks that share one card, or the CPU) a collective
 over CUDA tensors goes through host copies in pinned memory: gloo moves
 host memory.  gloo has no reduce-scatter: there it is an all-reduce of
@@ -225,9 +231,9 @@ class CollectiveCounter:
     def reset(self) -> None:
         self.records = []
 
-    def add(self, kind: str, x: torch.Tensor, group_size: int, axis: str,
+    def add(self, kind: str, dtype: torch.dtype, shape, group_size: int, axis: str,
             direction: str | None = None) -> None:
-        self.records.append(CollectiveRecord(kind, x.dtype, tuple(x.shape), group_size, axis,
+        self.records.append(CollectiveRecord(kind, dtype, tuple(shape), group_size, axis,
                                              direction or _STATE["direction"]))
 
     def summary(self, direction: str | None = None) -> dict[str, dict[str, int]]:
@@ -252,6 +258,22 @@ def _group(axis: str):
     return mesh.groups[axis], mesh.backend
 
 
+def _record(kind: str, x: torch.Tensor, shape, axis: str, direction: str | None = None
+            ) -> bool:
+    """Records one collective of ``x``'s dtype over ``axis`` (``shape``:
+    the rank's result, an all-to-all's input) before it runs.  True on a
+    count-only mesh, where the caller returns ``_unset`` instead of
+    running it."""
+    COUNTER.add(kind, x.dtype, shape, axis_size(axis), axis, direction)
+    return getattr(get_mesh(), "count_only", False)
+
+
+def _unset(x: torch.Tensor, shape) -> torch.Tensor:
+    """The result of a collective on a count-only mesh: its shape and
+    dtype, beside ``x``, values unset."""
+    return torch.empty(tuple(shape), dtype=x.dtype, device=x.device)
+
+
 def _via_host(x: torch.Tensor, backend: str) -> bool:
     return backend == "gloo" and x.is_cuda
 
@@ -272,32 +294,38 @@ def _to_wire(x: torch.Tensor, backend: str) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, axis: str, op: str, direction: str | None = None
                 ) -> torch.Tensor:
-    n = axis_size(axis)
+    if _record("all-reduce", x, x.shape, axis, direction):
+        return _unset(x, x.shape)
     group, backend = _group(axis)
     buf = _to_wire(x, backend)
     if buf is x:
         buf = x.clone()
     dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
                     group=group)
-    COUNTER.add("all-reduce", buf, n, axis, direction)
     return buf.to(x.device)
 
 
 def _all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     n = axis_size(axis)
+    shape = list(x.shape)
+    shape[dim] *= n
+    if _record("all-gather", x, shape, axis):
+        return _unset(x, shape)
     group, backend = _group(axis)
     buf = _to_wire(x, backend)
     parts = [_buffer(buf, _via_host(x, backend)) for _ in range(n)]
     dist.all_gather(parts, buf, group=group)
-    out = torch.cat([p.to(x.device) for p in parts], dim=dim)
-    COUNTER.add("all-gather", out, n, axis)
-    return out
+    return torch.cat([p.to(x.device) for p in parts], dim=dim)
 
 
 def _reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``axis``, this rank's slice
     along ``dim`` kept (a backward's collective)."""
     n = axis_size(axis)
+    shape = list(x.shape)
+    shape[dim] //= n
+    if _record("reduce-scatter", x, shape, axis, "backward"):
+        return _unset(x, shape)
     group, backend = _group(axis)
     if backend == "nccl":
         src = x.movedim(dim, 0).contiguous()
@@ -310,11 +338,8 @@ def _reduce_scatter(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         if buf is x:
             buf = x.clone()
         dist.all_reduce(buf, group=group)
-        size = x.shape[dim] // n
-        out = buf.narrow(dim, axis_index(axis) * size, size).to(x.device)
-    out = out.contiguous()
-    COUNTER.add("reduce-scatter", out, n, axis, "backward")
-    return out
+        out = buf.narrow(dim, axis_index(axis) * shape[dim], shape[dim]).to(x.device)
+    return out.contiguous()
 
 
 def _all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
@@ -323,11 +348,15 @@ def _all_to_all(x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} does not split "
                          f"over {n} ranks of {axis!r}")
+    if _record("all-to-all", x, x.shape, axis, direction):
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[concat_dim % x.dim()] *= n
+        return _unset(x, shape)
     group, backend = _group(axis)
     send = _to_wire(torch.stack(x.chunk(n, dim=split_dim)), backend)
     recv = _buffer(send, _via_host(x, backend))
     dist.all_to_all_single(recv, send, group=group)
-    COUNTER.add("all-to-all", x, n, axis, direction)
     return torch.cat([r.to(x.device) for r in recv.unbind(0)], dim=concat_dim % x.dim())
 
 

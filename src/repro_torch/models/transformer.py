@@ -29,27 +29,32 @@ and return a state that shares them; the reference returns fresh arrays
 instead.  SSM states are replaced, not updated.
 
 Under a device mesh (``models.sharding``; params from
-``launch.shardings.shard_params``) the dense and MoE families compute on
-this rank's shards, the collectives the reference's partitioner inserts
-written out: heads over 'model' by the GQA policy (k and v gathered after
-their column-parallel projection when the kv groups do not divide TP),
-row-parallel ``o`` and ``down`` summed over 'model', a vocab-sharded
-embedding and lm head (logits are this rank's vocab columns), the MoE
-expert exchange (``models.moe``).  ``prefill`` takes the mesh axes its
-batch rows are split over (``batch_axes``) and lays its KV, computed with
-the rank's kv groups or batch rows, into the decode state's layout
-(``launch.shardings.decode_state_sharding``: the pages' per_seq over
-'model' when it divides, else whole) with one all_to_all over 'model'
-(an all_gather when the pages stay whole); the state's ``layout`` says
-which, and the decode step runs the sequence-parallel branch of
-``paged_decode_with_write`` on it.  ``train_loss`` under a mesh runs the
-reference's ``mode="train"`` placements: FSDP over 'data' (each layer
-group's shards gathered inside its remat region), TP over 'model', the
-vocab-sharded loss, the mean over the global batch (the gradient
-convention of ``models.sharding``).  The SSM, hybrid and sliding-window
-families and image prompts refuse a 'model' axis of more than one rank
-(the SSM family trains under FSDP at 'model' = 1), and
-``models.whisper`` any mesh (ROADMAP.md, queue 1).
+``launch.shardings.shard_params``) every family computes on this rank's
+shards, the collectives the reference's partitioner inserts written out:
+heads over 'model' by the GQA policy (k and v gathered after their
+column-parallel projection when the kv groups do not divide TP, q's
+columns too when the heads do not), row-parallel ``o`` and ``down``
+summed over 'model', a vocab-sharded embedding and lm head (logits are
+this rank's vocab columns), the MoE expert exchange (``models.moe``), the
+SSD block split by heads or head_dim (``models.ssm``).  ``prefill`` takes
+the mesh axes its batch rows are split over (``batch_axes``) and lays its
+KV, computed with the rank's kv groups or batch rows, into the decode
+state's layout (``launch.shardings.decode_state_sharding``: the pages'
+per_seq over 'model' when it divides, else whole) with one all_to_all
+over 'model' (an all_gather when the pages stay whole); the state's
+``layout`` says which, and the decode step runs the sequence-parallel
+branch of ``paged_decode_with_write`` on it.  The sliding-window ring and
+the meta tokens' KV are whole on every 'model' rank (the rule replicates
+them): gathered over 'model' at prefill when the rank holds its groups
+only, and the ring's decode attention runs over every head, as the paged
+one does.  A VLM's image embeddings are split by batch rows like the
+tokens and fused in front of the text after the vocab-parallel
+embedding's sum.  ``train_loss`` under a mesh runs the reference's
+``mode="train"`` placements: FSDP over 'data' (each layer group's shards
+gathered inside its remat region), TP over 'model', the vocab-sharded
+loss, the mean over the global batch (the gradient convention of
+``models.sharding``).  ``models.whisper`` takes the same helpers
+(``heads``, ``place_pages``, ``attend_whole``).
 """
 from __future__ import annotations
 
@@ -70,7 +75,8 @@ from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.sharding import MeshLayout
 from repro_torch.models.ssm import ssm_prefill, ssm_state_shapes, ssm_step
 
-__all__ = ["DecoderLM", "DecodeState", "paged_kv", "sharded_nll", "stack_states"]
+__all__ = ["DecoderLM", "DecodeState", "attend_whole", "heads", "kv_for", "paged_kv",
+           "place_pages", "sharded_nll", "stack_states"]
 
 
 @dataclasses.dataclass
@@ -153,13 +159,82 @@ def sharded_nll(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
     return torch.log(sumexp) + m - sharding.all_reduce(label, "model")
 
 
-_REFUSED = "under a 'model' axis of more than one rank (ROADMAP.md, queue 1, item 3)"
+def heads(p, x, n: int, head_dim: int):
+    """x [..., d] -> [..., heads, head_dim] through a column-parallel
+    weight: this rank's heads when the n heads shard over TP (the GQA
+    policy), else all n (the columns gathered over 'model' when the weight
+    split them off head boundaries)."""
+    y = dense(p, x)
+    if y.shape[-1] < n * head_dim and not sharding.heads_sharded(n):
+        y = sharding.all_gather(y, "model", -1)
+    return y.reshape(*y.shape[:-1], -1, head_dim)
 
 
-def _layer(tree, i: int):
+def kv_for(q, k, v, num_heads: int, num_kv_heads: int):
+    """The kv groups of q's heads [b, s, h_l, d]: k and v as they are when
+    they hold exactly those groups; this rank's slice of whole groups when
+    only the heads shard over TP (or one group a head, where the heads
+    straddle groups)."""
+    h_l, qpg = q.shape[2], num_heads // num_kv_heads
+    if h_l == k.shape[2] * qpg:
+        return k, v
+    h0 = sharding.axis_index("model") * h_l
+    if qpg % h_l == 0 or (h0 % qpg == 0 and h_l % qpg == 0):
+        idx = slice(h0 // qpg, (h0 + h_l - 1) // qpg + 1)
+    else:
+        idx = torch.arange(h0, h0 + h_l, device=k.device) // qpg
+    return k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
+
+
+def place_pages(k_pages, v_pages, batch_axes, num_kv_heads: int):
+    """Prefill pages [L, b, per_seq, bs, g, hd], computed with this rank's
+    kv groups (TP) or batch rows (batch split over 'model' in the folded
+    deployment) -> the decode state's layout: the pages' per_seq over
+    'model' when it divides (one all_to_all: the rank's page slice of
+    every group or row), else whole on every rank (an all_gather of the
+    groups or rows).  Returns (k_pages, v_pages, MeshLayout)."""
+    tp = sharding.axis_size("model")
+    seq_parallel = tp > 1 and k_pages.shape[2] % tp == 0
+    src = (4 if k_pages.shape[4] < num_kv_heads
+           else 1 if "model" in batch_axes else None)
+
+    def place(x):
+        if src is not None and seq_parallel:
+            return sharding.all_to_all(x, "model", split_dim=2, concat_dim=src)
+        if src is not None:
+            return sharding.all_gather(x, "model", src)
+        return sharding.take_shard(x, "model", 2).contiguous() if seq_parallel else x
+
+    layout = MeshLayout(tuple(a for a in batch_axes if a != "model"), seq_parallel)
+    return place(k_pages), place(v_pages), layout
+
+
+def attend_whole(q, k, v, num_heads: int, num_kv_heads: int, fn):
+    """A decode step's attention over KV that every 'model' rank holds
+    whole (pages or ring): q [b, h_l, d], k / v [b, g_l, d] gathered to
+    every head and group over 'model', ``fn(q, k, v)`` -> (out [b, h, d],
+    extra), then this rank's heads of out."""
+    h_l = q.shape[1]
+    if h_l < num_heads:
+        q = sharding.all_gather(q, "model", 1)
+    if k.shape[1] < num_kv_heads:
+        k, v = sharding.all_gather(k, "model", 1), sharding.all_gather(v, "model", 1)
+    a, extra = fn(q, k, v)
+    if h_l < num_heads:
+        a = sharding.take_shard(a, "model", 1)
+    return a, extra
+
+
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf unbound once: in a
+    backward the layers' gradients are stacked in one write, where an
+    index a layer would write a zero-filled gradient of the whole stack
+    and add it into the leaf's, once a layer (bytes growing with the
+    square of the depth)."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _fsdp_gather(tree, plan, shift: int = 0):
@@ -199,8 +274,7 @@ class DecoderLM:
 
     def _sublayers(self, params):
         """(layer index, that layer's params, its FFN kind) in depth order."""
-        for step in range(self.n_steps):
-            p = _layer(params["layers"], step)
+        for step, p in enumerate(_layers(params["layers"], self.n_steps)):
             for i in range(self.group):
                 yield (step * self.group + i, p if self.group == 1 else p[f"sub{i}"],
                        self._sub_kind(i))
@@ -212,11 +286,11 @@ class DecoderLM:
         and dtypes (bf16; the SSM's ``a_log``, ``dt_bias`` and ``d_skip``
         in f32).  The numbers differ from the JAX init's: the tests carry
         JAX weights over with ``bridge.params_from_jax`` instead.
-        ``device="meta"``: the shapes and dtypes alone (``param_shapes``)."""
+        ``device="meta"``: the shapes and dtypes alone (``param_shapes``), no
+        draw."""
         cfg = self.cfg
-        dev = self.device if device is None else \
-            torch.device("meta") if str(device) == "meta" else resolve_device(device)
-        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
+        dev = self.device if device is None else resolve_device(device)
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         d = cfg.d_model
         if self.group == 1:
             layers = self._init_sub(gen, dev, self._sub_kind(0))
@@ -335,39 +409,6 @@ class DecoderLM:
             return swiglu(p["mlp"], hn, ff), None
         return gelu_mlp(p["mlp"], hn, ff), None
 
-    def _heads(self, p, x, n: int):
-        """x [..., d] -> [..., heads, hd] through a column-parallel weight:
-        this rank's heads when the n heads shard over TP (the GQA policy),
-        else all n (the columns gathered over 'model' when the weight
-        split them off head boundaries)."""
-        y = dense(p, x)
-        if y.shape[-1] < n * self.cfg.head_dim and not sharding.heads_sharded(n):
-            y = sharding.all_gather(y, "model", -1)
-        return y.reshape(*y.shape[:-1], -1, self.cfg.head_dim)
-
-    def _kv_for(self, q, k, v):
-        """The kv groups of q's heads [b, s, h_l, d]: k and v as they are
-        when they hold exactly those groups; this rank's slice of whole
-        groups when only the heads shard over TP (or one group a head,
-        where the heads straddle groups)."""
-        cfg = self.cfg
-        h_l, qpg = q.shape[2], cfg.num_heads // cfg.num_kv_heads
-        if h_l == k.shape[2] * qpg:
-            return k, v
-        h0 = sharding.axis_index("model") * h_l
-        if qpg % h_l == 0 or (h0 % qpg == 0 and h_l % qpg == 0):
-            idx = slice(h0 // qpg, (h0 + h_l - 1) // qpg + 1)
-        else:
-            idx = torch.arange(h0, h0 + h_l, device=k.device) // qpg
-        return k[:, :, idx].contiguous(), v[:, :, idx].contiguous()
-
-    def _check_mesh(self, vision: bool = False):
-        cfg = self.cfg
-        if sharding.axis_size("model") > 1 and (cfg.has_ssm or cfg.sliding_window or vision):
-            what = ("image prompts" if vision else "the SSM and hybrid families"
-                    if cfg.has_ssm else "sliding-window attention")
-            raise NotImplementedError(f"{cfg.name}: {what} {_REFUSED}")
-
     def _mix(self, p, outs: dict):
         """The token mixers' sum into the residual: the one branch, or the
         hybrid's per-branch RMSNorm mean."""
@@ -400,11 +441,12 @@ class DecoderLM:
             h = column_input(rmsnorm(p["attn_norm"], x, cfg.norm_eps), p["attn"]["q"]["w"],
                              cfg.attn_dim)
             b, s, _ = h.shape
-            q = rope(self._heads(p["attn"]["q"], h, cfg.num_heads), positions, cfg.rope_theta)
-            k = rope(self._heads(p["attn"]["k"], h, cfg.num_kv_heads), positions,
+            q = rope(heads(p["attn"]["q"], h, cfg.num_heads, cfg.head_dim), positions,
                      cfg.rope_theta)
-            v = self._heads(p["attn"]["v"], h, cfg.num_kv_heads)
-            kq, vq = self._kv_for(q, k, v)
+            k = rope(heads(p["attn"]["k"], h, cfg.num_kv_heads, cfg.head_dim), positions,
+                     cfg.rope_theta)
+            v = heads(p["attn"]["v"], h, cfg.num_kv_heads, cfg.head_dim)
+            kq, vq = kv_for(q, k, v, cfg.num_heads, cfg.num_kv_heads)
             a = flash_attention(q, kq, vq, causal=True, sliding_window=cfg.sliding_window,
                                 prefix_len=cfg.num_meta_tokens)
             outs["attn"] = row_dense(p["attn"]["o"], a.reshape(b, s, -1), cfg.attn_dim)
@@ -474,7 +516,6 @@ class DecoderLM:
         rank, its gradient shared among the ranks of the DP axes the batch
         is not split over (they compute it alike)."""
         cfg = self.cfg
-        self._check_mesh(vision=batch.get("vision_embeds") is not None)
         plan = self._fsdp_plan()
 
         def top(name):
@@ -489,8 +530,7 @@ class DecoderLM:
         positions = torch.arange(s_total, device=self.device)[None, :].expand(b, s_total)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         layer_plan = None if plan is None else plan["layers"]
-        for step in range(self.n_steps):
-            p = _layer(params["layers"], step)
+        for p in _layers(params["layers"], self.n_steps):
             if remat:
                 x, a = torch.utils.checkpoint.checkpoint(
                     self._group_train, p, x, positions, layer_plan, batch_axes,
@@ -522,7 +562,6 @@ class DecoderLM:
         for.  Under a mesh the batch holds this rank's rows, split over
         ``batch_axes``."""
         del remat
-        self._check_mesh(vision=batch.get("vision_embeds") is not None)
         tokens = self._tokens(batch["tokens"])
         b = tokens.shape[0]
         x, _ = self._embed_inputs(params, tokens, batch.get("vision_embeds"))
@@ -538,32 +577,10 @@ class DecoderLM:
         logits = self._logits(params, x[:, -1, :])
         return logits, self._caches_to_state(caches, b, s_total, max_blocks_margin, batch_axes)
 
-    def _place_pages(self, k_pages, v_pages, batch_axes):
-        """Prefill pages [L, b, per_seq, bs, g, hd], computed with this
-        rank's kv groups (TP) or batch rows (batch split over 'model' in the
-        folded deployment) -> the decode state's layout: the pages' per_seq
-        over 'model' when it divides (one all_to_all: the rank's page slice
-        of every group or row), else whole on every rank (an all_gather of
-        the groups or rows).  Returns (k_pages, v_pages, MeshLayout)."""
-        tp = sharding.axis_size("model")
-        seq_parallel = tp > 1 and k_pages.shape[2] % tp == 0
-        src = (4 if k_pages.shape[4] < self.cfg.num_kv_heads
-               else 1 if "model" in batch_axes else None)
-
-        def place(x):
-            if src is not None and seq_parallel:
-                return sharding.all_to_all(x, "model", split_dim=2, concat_dim=src)
-            if src is not None:
-                return sharding.all_gather(x, "model", src)
-            return sharding.take_shard(x, "model", 2).contiguous() if seq_parallel else x
-
-        layout = MeshLayout(tuple(a for a in batch_axes if a != "model"), seq_parallel)
-        return place(k_pages), place(v_pages), layout
-
     def _caches_to_state(self, caches, b, s_total, margin, batch_axes=()) -> DecodeState:
         """Per-layer prefill caches ([L, b, ...]) -> DecodeState: paged KV
         with ``margin`` empty pages after the prompt's and identity block
-        tables (under a mesh, placed by ``_place_pages``); or, for
+        tables (under a mesh, placed by ``place_pages``); or, for
         sliding-window archs, a ring of ``window + BLOCK_SIZE`` slots
         holding the newest tokens plus the meta KV; and the SSM states as
         they are."""
@@ -578,8 +595,10 @@ class DecoderLM:
             if cfg.sliding_window:
                 m = cfg.num_meta_tokens
                 cap = cfg.sliding_window + bs
+                if g < cfg.num_kv_heads:   # the rank's groups: ring and meta KV are whole
+                    g = cfg.num_kv_heads
                 if m:
-                    state.meta_k, state.meta_v = k[:, :, :m], v[:, :, :m]
+                    state.meta_k, state.meta_v = (self._whole_groups(t[:, :, :m]) for t in (k, v))
                     k, v = k[:, :, m:], v[:, :, m:]
                 s = k.shape[2]
                 take = min(cap, s)
@@ -587,15 +606,15 @@ class DecoderLM:
                 slots = tail_pos % cap
                 state.ring_k = torch.zeros((L, b, cap, g, hd), dtype=k.dtype, device=dev)
                 state.ring_v = torch.zeros_like(state.ring_k)
-                state.ring_k[:, :, slots] = k[:, :, s - take:]
-                state.ring_v[:, :, slots] = v[:, :, s - take:]
+                state.ring_k[:, :, slots] = self._whole_groups(k[:, :, s - take:])
+                state.ring_v[:, :, slots] = self._whole_groups(v[:, :, s - take:])
                 state.ring_pos = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
                 state.ring_pos[:, slots] = tail_pos.to(torch.int32)
             else:
                 state.k_pages, state.v_pages, state.block_tables = paged_kv(k, v, bs, margin)
                 if sharding.get_mesh() is not None:
-                    state.k_pages, state.v_pages, state.layout = self._place_pages(
-                        state.k_pages, state.v_pages, batch_axes)
+                    state.k_pages, state.v_pages, state.layout = place_pages(
+                        state.k_pages, state.v_pages, batch_axes, cfg.num_kv_heads)
                     b, pps = state.k_pages.shape[1], state.k_pages.shape[2]
                     state.context_lens = torch.full((b,), s_total, dtype=torch.int32,
                                                     device=dev)
@@ -608,6 +627,13 @@ class DecoderLM:
         if sharding.get_mesh() is not None and state.layout is None:
             state.layout = MeshLayout(tuple(a for a in batch_axes if a != "model"))
         return state
+
+    def _whole_groups(self, kv):
+        """KV [L, b, s, g_l, hd] of this rank's kv groups -> every group
+        (gathered over 'model'); whole KV as it is."""
+        if kv.shape[3] < self.cfg.num_kv_heads:
+            return sharding.all_gather(kv, "model", 3)
+        return kv
 
     def decode_state_shape(self, batch: int, context_len: int, *, margin: int = 16,
                            dtype: torch.dtype = torch.bfloat16) -> DecodeState:
@@ -648,9 +674,9 @@ class DecoderLM:
         groups under TP)."""
         cfg = self.cfg
         hn = rmsnorm(p["attn_norm"], h, cfg.norm_eps)
-        q = self._heads(p["attn"]["q"], hn, cfg.num_heads)[:, None]
-        k = self._heads(p["attn"]["k"], hn, cfg.num_kv_heads)[:, None]
-        v = self._heads(p["attn"]["v"], hn, cfg.num_kv_heads)
+        q = heads(p["attn"]["q"], hn, cfg.num_heads, cfg.head_dim)[:, None]
+        k = heads(p["attn"]["k"], hn, cfg.num_kv_heads, cfg.head_dim)[:, None]
+        v = heads(p["attn"]["v"], hn, cfg.num_kv_heads, cfg.head_dim)
         q = rope(q, pos[:, None], cfg.rope_theta)[:, 0]
         k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
         return q, k, v
@@ -660,18 +686,11 @@ class DecoderLM:
         over 'model' (the pages hold every group), the sequence-parallel
         branch when the state's pages split over 'model', then this rank's
         heads of the output."""
-        cfg = self.cfg
-        h_l = q.shape[1]
-        if h_l < cfg.num_heads:
-            q = sharding.all_gather(q, "model", 1)
-        if k.shape[1] < cfg.num_kv_heads:
-            k, v = sharding.all_gather(k, "model", 1), sharding.all_gather(v, "model", 1)
         seq_parallel = state.layout is not None and state.layout.seq_parallel
-        a, pages = paged_decode_with_write(q, k, v, pages, state.block_tables,
-                                           state.context_lens, seq_parallel=seq_parallel)
-        if h_l < cfg.num_heads:
-            a = sharding.take_shard(a, "model", 1)
-        return a, pages
+        return attend_whole(q, k, v, self.cfg.num_heads, self.cfg.num_kv_heads,
+                            lambda q, k, v: paged_decode_with_write(
+                                q, k, v, pages, state.block_tables, state.context_lens,
+                                seq_parallel=seq_parallel))
 
     def _sub_decode(self, p, h, state: DecodeState, layer: int, pages: KVPages | None,
                     ffn_kind: str):
@@ -685,7 +704,9 @@ class DecoderLM:
         if cfg.has_attention:
             q, k, v = self._attn_qkv(p, h, state.context_lens)
             if cfg.sliding_window:
-                a = self._ring_attention(q, k, v, state, layer)
+                a, _ = attend_whole(q, k, v, cfg.num_heads, cfg.num_kv_heads,
+                                    lambda q, k, v: (self._ring_attention(q, k, v, state, layer),
+                                                     None))
             else:
                 a, pages = self._paged_attention(q, k, v, pages, state)
             outs["attn"] = row_dense(p["attn"]["o"], a.reshape(b, -1), cfg.attn_dim)
@@ -732,9 +753,9 @@ class DecoderLM:
         new DecodeState sharing ``state``'s pages and rings, updated in
         place, with fresh SSM states)."""
         cfg = self.cfg
-        self._check_mesh()
         x = embed(params["embed"], self._tokens(tokens), cfg.padded_vocab)
-        if state.layout is not None and state.layout.seq_parallel:
+        if state.layout is not None and state.layout.seq_parallel \
+                and not state.block_tables.is_meta:
             b, pps = state.block_tables.shape
             if not torch.equal(state.block_tables, identity_slice(b, pps, self.device)):
                 raise ValueError("sequence-parallel decode needs the identity page layout: "

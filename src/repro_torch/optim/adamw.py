@@ -74,8 +74,9 @@ def global_norm(tree, split=None) -> torch.Tensor:
     if split is not None and sharding.get_mesh() is not None:
         v = torch.stack(sq)
         for axis in sharding.get_mesh().axis_names:
-            mask = torch.tensor([axis in a for a in split], device=v.device)
-            if mask.any() and sharding.axis_size(axis) > 1:
+            flags = [axis in a for a in split]
+            if any(flags) and sharding.axis_size(axis) > 1:
+                mask = torch.tensor(flags, device=v.device)
                 v = torch.where(mask, sharding.all_reduce(torch.where(mask, v, 0.0), axis), v)
         sq = list(v.unbind(0))
     total = sq[0]

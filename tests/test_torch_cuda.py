@@ -724,3 +724,38 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
     for (lc, gc), (lg, gg) in zip(runs["cpu"], runs["cuda"]):
         assert lg == pytest.approx(lc, rel=1e-5)
         assert gg == pytest.approx(gc, rel=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,nh,hd,ns", [
+    (3, 130, 12, 64, 128),      # mamba2-780m, a rank of (1, 4): 12 of 48 SSD heads
+    (1, 1328, 50, 16, 16),      # hymba-1.5b, a rank of (1, 4): 16 of head_dim 64
+    (1, 1328, 50, 4, 16),       # hymba-1.5b, a rank of (16, 16): 4 of head_dim 64
+])
+def test_ssd_scan_rank_local_shapes(gen, b, s, nh, hd, ns):
+    x = randn(gen, b, s, nh, hd) * 0.5
+    dt = randn(gen, b, s, nh).abs() * 0.1 + 0.01
+    a = -(randn(gen, nh).abs() + 0.5)
+    B, C = randn(gen, b, s, ns) * 0.3, randn(gen, b, s, ns) * 0.3
+    d_skip = randn(gen, nh)
+    y, st = ssd_scan(x, dt, a, B, C, d_skip)
+    ry, rst = ssd_scan_ref(x, dt, a, B, C, d_skip)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ry, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(st, rst, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,t,h,g,d,causal", [
+    (1500, 1500, 5, 5, 64, False),   # whisper's encoder, 5 heads a rank
+    (1, 1500, 5, 5, 64, False),      # whisper's decode cross-attention
+    (2976, 2976, 8, 2, 128, True),   # llava's image + text, 8 heads a rank
+])
+def test_flash_prefill_rank_local_shapes(gen, s, t, h, g, d, causal):
+    q = randn(gen, 1, s, h, d, dtype=torch.bfloat16)
+    k, v = (randn(gen, 1, t, g, d, dtype=torch.bfloat16) for _ in range(2))
+    out = flash_prefill(q, k, v, causal=causal)
+    ref = dense_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert rel_norm(out, ref) < REL_NORM_BF16

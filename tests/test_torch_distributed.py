@@ -24,8 +24,9 @@ the CPU, against the JAX package.
   extent; with a capacity that drops no (token, expert) pair
   (capacity_factor = E / k) an output is its token's own, so the mesh run
   must give the one-device run's.
-* The plain versions' lse and zero-context contract, the bf16 margin rule
-  of ``repro_torch.parity``, and the families refused under 'model' > 1.
+* The plain versions' lse and zero-context contract, and the bf16 margin
+  rule of ``repro_torch.parity``.  (The SSM, hybrid, encoder-decoder and
+  image-prompt families under a mesh: ``tests/test_torch_mesh_families.py``.)
 
 Every spawn is joined with a time limit: a hung rank fails the test.
 """
@@ -517,19 +518,3 @@ class TestBf16MarginRule:
         # a padded column above the best real one is not the runner-up
         m = parity.top2_margin(torch.tensor([[1.0, 3.0, 9.0]]), vocab=2)
         assert float(m[0]) == 2.0
-
-
-class TestRefusedUnderTensorParallel:
-    @pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b", "whisper-large-v3",
-                                      "llava-next-mistral-7b"])
-    def test_other_families_refuse_a_model_axis(self, arch):
-        cfg = pt_smoke_config(arch)
-        model = build_model(cfg, device="cpu")
-        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-        if cfg.family == "vlm":
-            batch["vision_embeds"] = torch.zeros((1, cfg.vision_tokens, cfg.d_model))
-        if cfg.is_encoder_decoder:
-            batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model))
-        with sharding.mesh_context(pt_mesh.Mesh.view({"data": 1, "model": 2}, 0)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-                model.prefill(model.init_params(0), batch)

@@ -130,7 +130,12 @@ def test_train_lm_resumes_bit_for_bit(capsys, monkeypatch):
         assert abs(got_loss - ref_loss) <= 2e-3, (head, got_loss, ref_loss)
 
 
-@pytest.mark.parametrize("path", sorted(EXAMPLES.glob("torch_*.py")), ids=lambda p: p.stem)
+# the simulator's example runs on the host and places nothing on a device
+HOST_ONLY = {"torch_pull_vs_push_sim"}
+
+
+@pytest.mark.parametrize("path", [p for p in sorted(EXAMPLES.glob("torch_*.py"))
+                                  if p.stem not in HOST_ONLY], ids=lambda p: p.stem)
 def test_examples_default_to_cuda_and_raise_without_it(path, monkeypatch):
     import torch
 

@@ -27,8 +27,8 @@ on one device.
   bit-equal global leaves, and read by JAX's ``restore_checkpoint``.
 * ``launch.train --smoke --device cpu --mesh 2,2``: a ``--resume`` from
   the step-3 checkpoint repeats the uninterrupted run's losses exactly.
-* The families that refuse a 'model' axis of more than one rank for
-  ``train_loss`` (SSM, hybrid, image prompts; whisper under any mesh).
+* (The SSM, hybrid, encoder-decoder and image-prompt families train under
+  'model' > 1 in ``tests/test_torch_mesh_families.py``.)
 """
 import dataclasses
 import os
@@ -482,22 +482,3 @@ def test_launcher_resume_under_a_mesh_repeats_the_losses(tmp_path, capfd):
     out = capfd.readouterr().out
     assert "4 devices" in out and "[train] resumed from step 3" in out
     assert out.count("[train] done") == 2   # rank 0 alone prints
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b", "llava-next-mistral-7b",
-                                  "whisper-large-v3"])
-def test_train_loss_refuses_a_model_axis(arch):
-    cfg = pt_smoke_config(arch)
-    model = build_model(cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    if cfg.family == "vlm":
-        batch["vision_embeds"] = torch.zeros((1, cfg.vision_tokens, cfg.d_model))
-    if cfg.is_encoder_decoder:
-        batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model))
-    meshes = [{"data": 1, "model": 2}]
-    if cfg.is_encoder_decoder:
-        meshes.append({"data": 2, "model": 1})   # whisper refuses any mesh
-    for shape in meshes:
-        with sharding.mesh_context(pt_mesh.Mesh.view(shape, 0)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-                model.train_loss(model.init_params(0), batch)

@@ -56,7 +56,8 @@ COPIES = (sorted((PORT / "configs").glob("*.py")) + [PORT / "models" / "config.p
           + [PORT / "serving" / f"{n}.py" for n in ("blocks", "request", "handle", "loop")]
           + sorted((PORT / "obs").glob("*.py")) + sorted((PORT / "sched").glob("*.py"))
           + sorted((PORT / "fleet").glob("*.py")) + sorted((PORT / "topo").glob("*.py"))
-          + [PORT / "data" / "pipeline.py"])
+          + [PORT / "data" / "pipeline.py"]
+          + [PORT / "sim" / f"{n}.py" for n in ("costs", "events", "workloads")])
 
 
 @pytest.mark.parametrize("path", COPIES, ids=lambda p: str(p.relative_to(PORT)))
@@ -157,11 +158,23 @@ def test_kernels_do_not_build_at_import():
 
 
 def test_wrappers_refuse_other_devices_and_mixed_placement():
+    """Meta tensors are the dry-run's (shapes only: nothing moves, the
+    kernel's work is counted); a device without a kernel and tensors on
+    several devices raise."""
+    import types
+
+    from repro_torch.kernels import build
     from repro_torch.kernels.kv_pull.ops import kv_pull
 
     src = torch.zeros(2, 16, dtype=torch.uint8, device="meta")
     ids = torch.zeros(1, dtype=torch.int32, device="meta")
+    build.reset_meta()
+    assert kv_pull(src, src, ids, ids) is src
+    assert build.META_WORK["calls"] == {"kv_pull": 1}
     with pytest.raises(ValueError, match="no kernel for device"):
-        kv_pull(src, src, ids, ids)
-    with pytest.raises(ValueError, match="several devices"):
+        build.on_cuda("kv_pull", types.SimpleNamespace(device=torch.device("xpu")))
+    with pytest.raises(ValueError, match="meta tensors mixed"):
         kv_pull(torch.zeros(2, 16, dtype=torch.uint8), src, ids, ids)
+    cpu = torch.zeros(2, 16, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="several devices"):
+        build.on_cuda("kv_pull", cpu, types.SimpleNamespace(device=torch.device("cuda", 0)))
