@@ -14,6 +14,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    128-token prefix, 1328 tokens); kv_pull_dequant bit-equal into f32
    and bf16 pools, on pages that are not a multiple of 16 elements, on a
    pool slice that is not 16-byte aligned and on a full Yi-9B pull;
+   kv_pull_runs (one transaction a run of adjacent pages) bit-equal at
+   run_len 1, 2, 4 and 8 in f32, bf16, int8 and uint8 with untouched pages
+   intact, on the 1024-block request of tests/test_kernels.py in 8-block
+   runs and on a Yi-9B request's slab pages in 108 runs of 8 (equal to
+   kv_pull on the runs' page ids too), a run past its pool raising;
    ssd_scan on the JAX test grid, the decay extremes (finite) and the full
    mamba2-780m / hymba-1.5b shapes at s = 1, 63, 64, 65, the prompts and
    1328, f32 (1e-3; the full mamba2 prompts within 1e-4) and bf16 x
@@ -51,6 +56,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    equal a monolithic b = 3 decode_step run over the stacked prefill
    states; then once with ``quantize_transfer=True`` (int8 wire bytes,
    nbytes/2+4 per read, landed by kv_pull_dequant).
+   4b. kv_pull_runs through its own entry point, a path of its own (the
+   serving path expands runs into kv_pull page ids): one Yi-9B 257-token
+   request's 864 uint8 slab pages pulled as 108 runs of 8, one launch,
+   bit-equal to the plain version.
 6. mamba2-780m at full width (48 layers, d_model 1536, random weights)
    through ``launch.steps``' prefill and serve steps on the same ragged
    prompts: monolithically, then disaggregated, each request's SSM state
@@ -127,7 +136,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    repeats step 3's loss bit for bit, and the checkpoint restored under
    (1, 4) gathers to the one-card restore's leaves bit for bit.  Step
    times, tokens a second, peak memory per rank and the collectives
-   beside the card's name and power limit.
+   beside the card's name and power limit; for each bf16 run and rank, the
+   dry-run's argument + temporary bytes of the same step beside the
+   measured ``max_memory_allocated`` (the run's and the steps' own), their
+   ratio recorded, not held to a limit.
 16. The SSM, hybrid, encoder-decoder and VLM families under a mesh of the
    same 4 spawned ranks (``--phase 16`` alone, as 14).  Serving over (1, 4)
    at the full configs in bf16 against one card under the margin rule:
@@ -190,7 +202,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    training backward (plain torch after ``_bwd_scan``) at the same shape;
    ssd_scan's forward and backward (plain torch, no Pallas counterpart) at
    mamba2-780m's training shape, 2 x 4096; paged_attention with lse at
-   phase 14's rank-local slice beside the call without it.
+   phase 14's rank-local slice beside the call without it; kv_pull_runs on
+   the kv_pull row's 864 Yi-9B pages as 108 runs of 8, beside kv_pull on
+   the runs' page ids and index_select + index_copy_.
 
 Then one JSON line of kernel records, the ``nvidia-smi`` name/power line,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -228,6 +242,7 @@ MAVERICK = dict(h=40, g=8, d=128, prompt=96)   # llama4-maverick, cut to 2 layer
 LLAVA = dict(h=32, g=8, d=128, vision=2880)
 WHISPER = dict(h=20, g=20, d=64, frames=1500)
 PROMPTS = (96, 130, 257)
+RUN_LEN = 8                        # kv_pull_runs' pages a run at Yi-9B (1024-block mini too)
 HYMBA_PROMPTS = (96, 130, 1200)
 LLAVA_PROMPTS = (96, 130)          # text after the 2880 image tokens
 WHISPER_PROMPTS = (4, 33, 130)     # decoder prompts over 1500 frames
@@ -805,6 +820,112 @@ def yi_pull_inputs(gen, dev, dtype=None):
     return src, dst, sids, dids
 
 
+def yi_run_inputs(gen, dev):
+    """A 257-token Yi-9B request's 864 pages (9 blocks x 48 layers x K,V)
+    as 108 runs of RUN_LEN adjacent pages at random run slots of two uint8
+    slabs of 32 KiB pages (``yi_pull_inputs``' pools), and the runs
+    expanded into page ids, as the transfer engine would launch them
+    through kv_pull: (src, dst, src starts, dst starts, src ids, dst ids)."""
+    import torch
+
+    page = YI["bs"] * YI["g"] * YI["d"] * 2
+    n_pages = 256 * 2 * 48 // 8
+    n_runs = 9 * 48 * 2 // RUN_LEN
+    ss, ds = (torch.randperm(n_pages // RUN_LEN, generator=gen, device=dev)[:n_runs]
+              .to(torch.int32) for _ in range(2))
+    src, dst = (torch.randint(0, 256, (n_pages, page), generator=gen, device=dev,
+                              dtype=torch.uint8) for _ in range(2))
+    return (src, dst, ss, ds) + expand_runs(ss, ds, RUN_LEN)
+
+
+def expand_runs(ss, ds, run_len):
+    """Run starts (in run units) -> the page ids of every page of every run."""
+    import torch
+
+    pages = torch.arange(run_len, dtype=torch.int32, device=ss.device)
+    return tuple((x[:, None] * run_len + pages).reshape(-1) for x in (ss, ds))
+
+
+def check_kv_pull_runs(gen, dev):
+    """kv_pull_runs (one transaction a run of run_len adjacent pages) bit-equal
+    to its plain version at run_len 1, 2, 4, 8 in f32, bf16, int8 and uint8,
+    pages no run names intact; the 1024-block request of
+    tests/test_kernels.py pulled in 8 runs of 8 blocks; the Yi-9B request's
+    uint8 slab pages in runs of RUN_LEN, equal to kv_pull on the runs'
+    page ids too; a run past a pool raises."""
+    import torch
+
+    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_runs
+    from repro_torch.kernels.kv_pull.ref import kv_pull_runs_ref
+
+    def exact(out, ref, what):
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{what}: kernel differs from the plain version")
+
+    for run_len in (1, 2, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16, torch.int8, torch.uint8):
+            src = torch.randint(0, 100, (64, 16, 2, 32), generator=gen, device=dev).to(dtype)
+            dst = torch.randint(0, 100, (48, 16, 2, 32), generator=gen, device=dev).to(dtype)
+            ss = torch.randperm(64 // run_len, generator=gen, device=dev)[:5].to(torch.int32)
+            ds = torch.randperm(48 // run_len, generator=gen, device=dev)[:5].to(torch.int32)
+            keep = dst.clone()
+            out = kv_pull_runs(src, dst.clone(), ss, ds, run_len=run_len)
+            what = f"kv_pull_runs {dtype} runs of {run_len}"
+            exact(out, kv_pull_runs_ref(src, keep.clone(), ss, ds, run_len=run_len), what)
+            mask = torch.ones(48, dtype=torch.bool, device=dev)
+            mask[expand_runs(ss, ds, run_len)[1].long()] = False
+            exact(out[mask], keep[mask], f"{what}: untouched pages")
+    src = torch.randn(64, 16, 2, 32, generator=gen, device=dev)
+    starts = torch.arange(8, dtype=torch.int32, device=dev)
+    out = kv_pull_runs(src, torch.zeros_like(src), starts, starts, run_len=8)
+    exact(out, src, "kv_pull_runs: 1024-block request in 8-block runs")
+    src, dst, ss, ds, sid, did = yi_run_inputs(gen, dev)
+    out = kv_pull_runs(src, dst.clone(), ss, ds, run_len=RUN_LEN)
+    exact(out, kv_pull_runs_ref(src, dst.clone(), ss, ds, run_len=RUN_LEN),
+          "kv_pull_runs yi-9b slab pages")
+    exact(out, kv_pull(src, dst.clone(), sid, did), "kv_pull_runs vs kv_pull on page ids")
+    try:
+        kv_pull_runs(src, dst, ss, ds + dst.shape[0] // RUN_LEN, run_len=RUN_LEN)
+    except IndexError:
+        pass
+    else:
+        raise AssertionError("kv_pull_runs: a run past the dst pool did not raise")
+    torch.cuda.synchronize()
+    log("phase 2: kv_pull_runs bit-equal at run_len 1/2/4/8 in f32/bf16/int8/uint8, the "
+        "1024-block mini, the yi-9b request's 108 runs of 8 slab pages (equal to kv_pull "
+        "on their page ids); a run past its pool raises")
+    return 0.0
+
+
+def phase_pull_runs(gen, dev):
+    """Phase 4b: kv_pull_runs through its entry point, a path of its own
+    (the serving path expands runs into kv_pull page ids, as the reference's
+    engine never calls its run-granular kernel either): the Yi-9B
+    request's 864 pages pulled as 108 runs of RUN_LEN from a prefill slab
+    into a decode slab, the counts zeroed just before and read just after;
+    the pages land bit-equal to the plain version, and pages no run names
+    keep their bytes."""
+    import torch
+
+    from repro_torch.kernels.kv_pull.ops import kv_pull_runs
+    from repro_torch.kernels.kv_pull.ref import kv_pull_runs_ref
+
+    src, dst, ss, ds, _, did = yi_run_inputs(gen, dev)
+    keep = dst.clone()
+    reset_counts()
+    kv_pull_runs(src, dst, ss, ds, run_len=RUN_LEN)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(kernel_ops(), 0) | {"kv_pull_runs": 1}
+    got = expect_counts(f"phase 4b: yi-9b request's {ss.shape[0]} runs of {RUN_LEN} pages "
+                        f"through kv_pull_runs", read_counts(), want)
+    mask = torch.ones(dst.shape[0], dtype=torch.bool, device=dev)
+    mask[did.long()] = False
+    if not (torch.equal(dst, kv_pull_runs_ref(src, keep.clone(), ss, ds, run_len=RUN_LEN))
+            and torch.equal(dst[mask], keep[mask])):
+        raise AssertionError("phase 4b: kv_pull_runs landed other bytes than the plain version")
+    return got
+
+
 def check_kv_pull_dequant(gen, dev):
     import torch
 
@@ -1008,12 +1129,13 @@ def monolithic_batched(model, params, prompts, n):
 
 def kernel_ops():
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
-    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
+    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant, kv_pull_runs
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     return {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
-            "kv_pull": kv_pull, "kv_pull_dequant": kv_pull_dequant, "ssd_scan": ssd_scan}
+            "kv_pull": kv_pull, "kv_pull_runs": kv_pull_runs, "kv_pull_dequant": kv_pull_dequant,
+            "ssd_scan": ssd_scan}
 
 
 def read_counts():
@@ -2444,14 +2566,16 @@ def _train_batch(cfg, b, s, seed, tokens=None):
 
 
 def dryrun_train(cfg, shape, rank, b, s):
-    """The dry-run's collectives of rank ``rank``'s train step of ``cfg``
-    on a ("data", "model") mesh of ``shape`` over a global batch of ``b``
-    x ``s``: {"forward"|"backward": {kind: {"count", "bytes"}}}."""
+    """The dry-run's count of rank ``rank``'s train step of ``cfg`` on a
+    ("data", "model") mesh of ``shape`` over a global batch of ``b`` x
+    ``s``: its collectives, {"forward"|"backward": {kind: {"count",
+    "bytes"}}}, and its argument and temporary bytes."""
     from repro_torch.launch import dryrun
 
     got = dryrun.count(cfg, "train", {"data": shape[0], "model": shape[1]}, rank,
                        batch=b, seq=s)
-    return {d: got.summary(d) for d in ("forward", "backward")}
+    return {"collectives": {d: got.summary(d) for d in ("forward", "backward")},
+            "argument_bytes": got.argument_bytes, "temp_bytes": got.temp_bytes}
 
 
 def _named_leaves(tree, path=""):
@@ -2602,6 +2726,8 @@ def _mesh_train_run(dev, rank, arch, layers, shape, b, s):
     torch.cuda.synchronize(dev)
     build_s = time.perf_counter() - t0
     state_gb = sum(t.numel() * t.element_size() for t in leaves((params, opt))) / 1e9
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)   # the steps' own peak from here
     step = make_train_step(model, ocfg, remat=True, mesh=mesh)
     data = SyntheticLMDataset(cfg.vocab_size, s, b)
     losses, times, colls = [], [], []
@@ -2617,8 +2743,10 @@ def _mesh_train_run(dev, rank, arch, layers, shape, b, s):
         times.append(time.perf_counter() - t0)
         colls.append({d: sharding.COUNTER.summary(d) for d in ("forward", "backward")})
     wire = {d: st.wire_bytes for d, st in train_step_stats(sharding.COUNTER.records).items()}
+    steps_peak = torch.cuda.max_memory_allocated(dev)
     out = {"losses": losses, "step_s": times, "collectives": colls, "counts": read_counts(),
-           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "state_gb": state_gb,
+           "peak_gb": max(build_peak, steps_peak) / 1e9, "steps_peak_gb": steps_peak / 1e9,
+           "state_gb": state_gb,
            "build_s": build_s, "layers": cfg.num_layers, "wire_bytes": wire}
     del params, opt, model
     free_model()
@@ -2794,15 +2922,34 @@ def phase_mesh_train(card, f32_runs=None, runs=None, tag="phase 15"):
             expect_counts(f"{tag}: {name} over {shape}, {MTRAIN_STEPS} steps, rank {r}",
                           run["counts"], _train_launches(_mesh_train_cfg(arch, L), MTRAIN_STEPS))
             for i, c in enumerate(run["collectives"]):
-                if c != run["dryrun"]:
+                if c != run["dryrun"]["collectives"]:
                     raise AssertionError(f"{tag}: {name} rank {r} step {i}: collectives "
-                                         f"{c} != the dry-run's {run['dryrun']}")
+                                         f"{c} != the dry-run's {run['dryrun']['collectives']}")
         step_s = sorted(got["step_s"][1:])[len(got["step_s"][1:]) // 2]
         peak = [rank["runs"][name]["peak_gb"] for rank in ranks]
+        # the dry-run's arguments + temporaries of each rank's step beside the
+        # card's peaks (the whole run's, and the steps' own after the state was
+        # built); held to no ratio, recorded
+        memory = []
+        for r, rank in enumerate(ranks):
+            run = rank["runs"][name]
+            counted = (run["dryrun"]["argument_bytes"] + run["dryrun"]["temp_bytes"]) / 1e9
+            memory.append({"rank": r, "dryrun_gb": counted,
+                           "argument_gb": run["dryrun"]["argument_bytes"] / 1e9,
+                           "temp_gb": run["dryrun"]["temp_bytes"] / 1e9,
+                           "peak_gb": run["peak_gb"], "steps_peak_gb": run["steps_peak_gb"],
+                           "peak_over_dryrun": run["peak_gb"] / counted})
+            log(f"{tag} ({card}): {name} over {shape}, {b} x {s}, rank {r}: dry-run "
+                f"arguments + temporaries {counted:.4f} GB "
+                f"({run['dryrun']['argument_bytes']} + {run['dryrun']['temp_bytes']} B); "
+                f"measured max_memory_allocated {run['peak_gb']:.4f} GB (the steps alone "
+                f"{run['steps_peak_gb']:.4f} GB); peak / dry-run "
+                f"{run['peak_gb'] / counted:.4f}")
         records["runs"][name] = {
             "mesh": shape, "batch": (b, s), "layers": L, "losses": got["losses"],
             "step_s": step_s, "first_step_s": got["step_s"][0], "tokens_per_s": b * s / step_s,
-            "peak_gb": peak, "state_gb": got["state_gb"], "build_s": got["build_s"],
+            "peak_gb": peak, "memory_vs_dryrun": memory, "state_gb": got["state_gb"],
+            "build_s": got["build_s"],
             "counts": got["counts"], "collectives": got["collectives"][-1],
             "wire_bytes": got["wire_bytes"], "dryrun_s": got["dryrun_s"]}
         log(f"{tag} ({card}; {backend}, {MESH_RANKS} ranks): {name} over "
@@ -3232,8 +3379,10 @@ def phase_times(gen, dev):
 def other_time_rows(gen, dev):
     import torch
 
-    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
-    from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
+    from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant, kv_pull_runs
+    from repro_torch.kernels.kv_pull.ops import work as pull_work
+    from repro_torch.kernels.kv_pull.ref import (
+        kv_pull_dequant_ref, kv_pull_ref, kv_pull_runs_ref)
 
     bf = torch.bfloat16
     rows = {}
@@ -3249,6 +3398,22 @@ def other_time_rows(gen, dev):
         library_ms=time_ms(lambda: dst.index_copy_(0, dl, src.index_select(0, sl))),
         bound=bound_ms(2 * n * page + 2 * n * 4, 0),
         shape=f"{n} pages x {page} B (9 blocks x 48 layers x K,V)")
+
+    # kv_pull_runs: the same request's 864 pages as 108 runs of RUN_LEN at random
+    # run slots; beside it kv_pull over the runs expanded into page ids
+    src, dst, ss, ds, sid, did = yi_run_inputs(gen, dev)
+    sl, dl = sid.long(), did.long()
+    page = src.shape[1]
+    flops, nbytes = pull_work(ss.shape[0], page, page, RUN_LEN)
+    rows["kv_pull_runs"] = dict(
+        ms=time_ms(lambda: kv_pull_runs(src, dst, ss, ds, run_len=RUN_LEN)),
+        call_ms=call_ms(lambda: kv_pull_runs(src, dst, ss, ds, run_len=RUN_LEN)),
+        plain_ms=call_ms(lambda: kv_pull_runs_ref(src, dst, ss, ds, run_len=RUN_LEN)),
+        library_ms=time_ms(lambda: dst.index_copy_(0, dl, src.index_select(0, sl))),
+        kv_pull_expanded_ms=time_ms(lambda: kv_pull(src, dst, sid, did)),
+        bound=bound_ms(nbytes, flops),
+        shape=f"{ss.shape[0]} runs of {RUN_LEN} pages x {page} B (the kv_pull row's "
+              f"{sid.shape[0]} pages)")
 
     # kv_pull_dequant: the same request's pages, int8 wire -> bf16 pool
     src, dst, sids, dids = yi_pull_inputs(gen, dev, bf)
@@ -3289,6 +3454,8 @@ SOURCES = {
                       "src/repro/kernels/flash_prefill/kernel.py:103"),
     "kv_pull": ("src/repro_torch/csrc/kv_pull.cu",
                 "src/repro/kernels/kv_pull/kernel.py:68"),
+    "kv_pull_runs": ("src/repro_torch/csrc/kv_pull.cu",
+                     "src/repro/kernels/kv_pull/kernel.py:128"),
     "kv_pull_dequant": ("src/repro_torch/csrc/kv_pull.cu",
                         "src/repro/kernels/kv_pull/kernel.py:92"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -3303,8 +3470,8 @@ def fmt_ms(x):
 def timing(row):
     """A phase-5 row's numbers under the keys of the kernels line."""
     bms, by = row["bound"]
-    extra = {k: row[k] for k in ("vs_library", "grid", "launch_us", "ms_without_lse")
-             if k in row}
+    extra = {k: row[k] for k in ("vs_library", "grid", "launch_us", "ms_without_lse",
+                                 "kv_pull_expanded_ms") if k in row}
     extra["call_ms"] = row["call_ms"]
     return {"ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": row["library_ms"], "shape": row["shape"], **extra}
@@ -3353,6 +3520,7 @@ def main(argv=None) -> int:
         "paged_attention": check_paged_attention(gen, dev),
         "flash_prefill": check_flash_prefill(gen, dev),
         "kv_pull": check_kv_pull(gen, dev),
+        "kv_pull_runs": check_kv_pull_runs(gen, dev),
         "kv_pull_dequant": check_kv_pull_dequant(gen, dev),
         "ssd_scan": check_ssd_scan(gen, dev),
     }
@@ -3381,6 +3549,7 @@ def main(argv=None) -> int:
     del params, model
     torch.cuda.empty_cache()
     log(f"phases 3-4: {time.perf_counter() - t0:.1f}s with the weights and references")
+    runs_counts = phase_pull_runs(gen, dev)
 
     t0 = time.perf_counter()
     mamba_counts, mamba_per_request, pulled = phase_mamba2(dev)
@@ -3454,6 +3623,9 @@ def main(argv=None) -> int:
             launches, run = mamba_counts[name], "phase 6: mamba2-780m disaggregated"
             per = mamba_per_request[name]
             extra |= {"launches_hymba": hymba_counts[name], "bytes_pulled_per_request": pulled}
+        elif name == "kv_pull_runs":
+            launches = per = runs_counts[name]
+            run = "phase 4b: kv_pull_runs, one yi-9b request's pages in runs of 8"
         else:
             quantized = name == "kv_pull_dequant"
             launches = serve_counts[quantized][name]
@@ -3500,7 +3672,9 @@ def main(argv=None) -> int:
                    if "bound_f32_fma_ms" in raw else "")
                 + (f"; us a launch (profiler) {r['launch_us']}" if "launch_us" in r else "")
                 + (f"; without lse {r['ms_without_lse']:.4f} ms" if "ms_without_lse" in r
-                   else ""))
+                   else "")
+                + (f"; kv_pull on the runs' page ids {r['kv_pull_expanded_ms']:.4f} ms"
+                   if "kv_pull_expanded_ms" in r else ""))
     tr = rows["flash_prefill"]["training"]
     for what, r in (("forward with lse", tr["forward_lse"]), ("training backward",
                                                              tr["backward"])):

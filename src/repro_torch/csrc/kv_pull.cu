@@ -2,8 +2,14 @@
 //
 // Replaces the Pallas kernels in src/repro/kernels/kv_pull/kernel.py:
 //   * kv_pull / kv_pull_runs  (shared `_pull`, kernel.py:44, :68, :128)
-//     -> kv_pull_kernel, `txn_bytes` contiguous bytes per transaction (the
-//     transfer engine expands coalesced runs into single-page ids);
+//     -> kv_pull_kernel, `txn_bytes` contiguous bytes per transaction, as
+//     the Pallas grid step moves one block of `pages_per_txn` pages:
+//     kv_pull_launch moves a page a transaction, kv_pull_runs_launch a run
+//     of `run_len` adjacent pages (run_len x page_bytes contiguous bytes
+//     from byte start x run_len x page_bytes: starts in run units, the
+//     Pallas block index).  The transfer engine expands a tick's runs into
+//     page ids for one kv_pull launch; kv_pull_runs serves callers that
+//     hold whole runs;
 //   * kv_pull_dequant          (kernel.py:92)
 //     -> kv_pull_dequant_vec_kernel (scalar fallback kv_pull_dequant_kernel).
 //
@@ -167,6 +173,17 @@ extern "C" int kv_pull_launch(const void* src, void* dst, const void* src_ids,
         txn_bytes);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Runs of run_len adjacent pages of page_bytes each: transaction i moves
+// the run_len * page_bytes bytes at src + src_starts[i]*run_len*page_bytes
+// to dst + dst_starts[i]*run_len*page_bytes (starts in run units).
+extern "C" int kv_pull_runs_launch(const void* src, void* dst, const void* src_starts,
+                                   const void* dst_starts, int n_runs, int64_t page_bytes,
+                                   int run_len, void* stream) {
+  if (run_len < 1 || page_bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return kv_pull_launch(src, dst, src_starts, dst_starts, n_runs,
+                        page_bytes * static_cast<int64_t>(run_len), stream);
 }
 
 // dst_dtype: 0 = float32, 1 = bfloat16.

@@ -5,12 +5,23 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["kv_pull_ref", "kv_pull_dequant_ref"]
+__all__ = ["kv_pull_ref", "kv_pull_runs_ref", "kv_pull_dequant_ref"]
 
 
 def kv_pull_ref(src_pages, dst_pages, src_ids, dst_ids):
     """dst_pages[dst_ids[i]] = src_pages[src_ids[i]]."""
     dst_pages[dst_ids.long()] = src_pages[src_ids.long()]
+    return dst_pages
+
+
+def kv_pull_runs_ref(src_pages, dst_pages, src_starts, dst_starts, *, run_len: int):
+    """Runs of ``run_len`` adjacent pages: dst_pages[d * run_len + j] =
+    src_pages[s * run_len + j] for each (s, d) of the starts, which are in
+    run units (page_id = start * run_len), and j < run_len."""
+    offs = torch.arange(run_len, device=src_starts.device)
+    src_ids = (src_starts.long()[:, None] * run_len + offs).reshape(-1)
+    dst_ids = (dst_starts.long()[:, None] * run_len + offs).reshape(-1)
+    dst_pages[dst_ids] = src_pages[src_ids]
     return dst_pages
 
 

@@ -73,8 +73,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.models.sharding import MeshLayout
 from repro_torch.optim.adamw import AdamWConfig
 
-__all__ = ["PRODUCTION_MESHES", "StepCount", "count", "count_step", "local_state", "main",
-           "run_cell", "step_fn", "sweep"]
+__all__ = ["PRODUCTION_MESHES", "StepCount", "argument_bytes", "count", "count_step",
+           "local_state", "main", "run_cell", "step_fn", "sweep"]
 
 PRODUCTION_MESHES = {"pod": {"data": 16, "model": 16},
                      "multipod": {"pod": 2, "data": 16, "model": 16}}
@@ -135,6 +135,7 @@ class StepCount:
     kernel_calls: dict       # kernel name -> calls on meta tensors
     trace_s: float
     outputs: object = None
+    argument_bytes: int | None = None   # the rank's step arguments (``count``)
 
     def summary(self, direction: str | None = None) -> dict:
         out: dict = {}
@@ -230,18 +231,29 @@ def step_fn(model, kind: str, mesh, *, batch: int, seq: int, dtype=None,
 
 def count(cfg, kind: str, mesh_shape: dict[str, int], rank: int = 0, **kw) -> StepCount:
     """``step_fn``'s step of ``cfg`` on rank ``rank`` of a count-only mesh
-    of ``mesh_shape``, counted (``count_step``)."""
+    of ``mesh_shape``, counted (``count_step``), with its
+    ``argument_bytes``."""
     model = build_model(cfg, device="meta")
     mesh = Mesh.view(mesh_shape, rank, device="meta", count_only=True)
-    with sharding.mesh_context(mesh, fold_model_axis=cfg.fold_model_axis_into_dp):
+    fold = cfg.fold_model_axis_into_dp
+    with sharding.mesh_context(mesh, fold_model_axis=fold):
         fn, args = step_fn(model, kind, mesh, **kw)
-        return count_step(fn, *args)
+        got = count_step(fn, *args)
+        got.argument_bytes = argument_bytes(kind, args, mesh, fold)
+    return got
 
 
-def _rank_rows_bytes(data, mesh, fold) -> int:
+def argument_bytes(kind: str, args, mesh, fold: bool) -> int:
+    """The bytes of the rank's arguments of ``step_fn``'s ``kind`` step:
+    params and AdamW state (train), or params, and the rank's rows of the
+    batch (train, prefill), or the decode state and tokens (decode)."""
     from repro_torch.data.sharded import rank_rows
 
-    return sum(_nbytes(t) for t in _tensors(rank_rows(data, mesh, fold_model=fold)[0]))
+    if kind == "decode":
+        return sum(_nbytes(t) for t in _tensors(args))
+    *state, data = args
+    rows = rank_rows(data, mesh, fold_model=fold)[0]
+    return sum(_nbytes(t) for t in _tensors(state)) + sum(_nbytes(t) for t in _tensors(rows))
 
 
 def _cfg_at_depth(cfg, depth: str):
@@ -294,17 +306,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, depth: str, out_dir: st
     with sharding.mesh_context(mesh, fold_model_axis=fold):
         fn, args = step_fn(model, shape.kind, mesh, batch=shape.global_batch,
                            seq=shape.seq_len, num_microbatches=n_micro, remat=remat)
-        if shape.kind == "train":
-            params, opt, data = args
-            arg_bytes = sum(_nbytes(t) for t in _tensors((params, opt))) \
-                + _rank_rows_bytes(data, mesh, fold)
-        elif shape.kind == "prefill":
-            params, data = args
-            arg_bytes = sum(_nbytes(t) for t in _tensors(params)) \
-                + _rank_rows_bytes(data, mesh, fold)
-        else:
-            params, state, tokens = args
-            arg_bytes = sum(_nbytes(t) for t in _tensors((params, state, tokens)))
+        arg_bytes = argument_bytes(shape.kind, args, mesh, fold)
         got = count_step(fn, *args)
     out_bytes = sum(_nbytes(t) for t in _tensors(got.outputs))
     coll = collective_stats(got.records)

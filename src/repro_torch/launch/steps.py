@@ -144,8 +144,14 @@ def _reduce_grads(grads, axes_of):
 
 def _train_specs(model, mesh) -> list:
     """The train placements of ``model``'s param leaves on ``mesh``, in
-    JAX's leaf order."""
-    return spec_leaves(param_sharding(model.param_shapes(), mesh, mode="train",
+    JAX's leaf order, and the model's FSDP plan for ``mesh`` made: both
+    from one param tree on meta, built when the step is made, so that no
+    call of the step builds one (``launch.dryrun`` counts a call's
+    temporaries)."""
+    shapes = model.param_shapes()
+    with _in_mesh(mesh, model):
+        model._fsdp_plan(shapes)
+    return spec_leaves(param_sharding(shapes, mesh, mode="train",
                                       fold_model=model.cfg.fold_model_axis_into_dp))
 
 
@@ -165,7 +171,10 @@ def make_grad_step(model, *, remat: bool = True, num_microbatches: int = 1, mesh
     of the global gradients: after the backward, each leaf's gradient is
     summed over the DP axes its train placement replicates it on
     (``launch.shardings.grad_reduce_axes``)."""
-    reduce_axes = []   # each leaf's DP sum axes, placed at the first call
+    specs = None if mesh is None else _train_specs(model, mesh)
+    with _in_mesh(mesh, model):   # each leaf's DP sum axes
+        reduce_axes = None if mesh is None else [
+            grad_reduce_axes(sp, mesh, fold_model=sharding.tp_folded()) for sp in specs]
 
     def grad_step(params, batch):
         def local(b):
@@ -199,13 +208,11 @@ def make_grad_step(model, *, remat: bool = True, num_microbatches: int = 1, mesh
                 metrics = {"nll": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                            device=model.device)}
             if mesh is not None:
-                if not reduce_axes:
-                    reduce_axes.extend(grad_reduce_axes(sp, mesh, fold_model=sharding.tp_folded())
-                                       for sp in _train_specs(model, mesh))
                 with sharding.recording("backward"):
                     grads = _reduce_grads(grads, reduce_axes)
         return loss, metrics, grads
 
+    grad_step.specs = specs
     return grad_step
 
 
@@ -220,15 +227,14 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, remat: bool = True,
     (``launch.shardings.opt_state_sharding``), the whole global batch in;
     the clip's norm is the global gradient's."""
     grad_step = make_grad_step(model, remat=remat, num_microbatches=num_microbatches, mesh=mesh)
-    split = []   # each leaf's split axes under a mesh, placed at the first call
+    # each leaf's split axes under a mesh
+    split = None if mesh is None else [split_axes(sp) for sp in grad_step.specs]
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = grad_step(params, batch)
-        if mesh is not None and not split:
-            split.extend(split_axes(sp) for sp in _train_specs(model, mesh))
         with _in_mesh(mesh, model), sharding.recording("backward"):
             params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg,
-                                                 split=split or None)
+                                                 split=split)
         return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step

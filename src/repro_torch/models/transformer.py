@@ -316,10 +316,10 @@ class DecoderLM:
         storage (the reference's ``jax.eval_shape`` of ``init_params``)."""
         return self.init_params(device="meta")
 
-    def _fsdp_plan(self):
+    def _fsdp_plan(self, shapes=None):
         """Under a mesh, the FSDP gathers of every leaf of the train
-        placements (``launch.shardings.fsdp_plan``), made once a mesh shape;
-        None without a mesh."""
+        placements (``launch.shardings.fsdp_plan``), made once a mesh shape
+        from ``shapes`` (None: ``param_shapes()``); None without a mesh."""
         mesh = sharding.get_mesh()
         if mesh is None:
             return None
@@ -327,8 +327,9 @@ class DecoderLM:
 
         key = (tuple(mesh.shape.items()), sharding.tp_folded())
         if key not in self._fsdp_plans:
-            self._fsdp_plans[key] = fsdp_plan(self.param_shapes(), mesh,
-                                              fold_model=sharding.tp_folded())
+            self._fsdp_plans[key] = fsdp_plan(
+                self.param_shapes() if shapes is None else shapes, mesh,
+                fold_model=sharding.tp_folded())
         return self._fsdp_plans[key]
 
     def _init_sub(self, gen, dev, ffn_kind: str) -> dict:

@@ -150,9 +150,10 @@ class EncDecLM:
         storage (the reference's ``jax.eval_shape`` of ``init_params``)."""
         return self.init_params(device="meta")
 
-    def _fsdp_plan(self):
+    def _fsdp_plan(self, shapes=None):
         """Under a mesh, the FSDP gathers of every leaf of the train
-        placements (``launch.shardings.fsdp_plan``); None without a mesh."""
+        placements (``launch.shardings.fsdp_plan``) from ``shapes`` (None:
+        ``param_shapes()``); None without a mesh."""
         mesh = sharding.get_mesh()
         if mesh is None:
             return None
@@ -160,7 +161,8 @@ class EncDecLM:
 
         key = tuple(mesh.shape.items())
         if key not in self._fsdp_plans:
-            self._fsdp_plans[key] = fsdp_plan(self.param_shapes(), mesh)
+            self._fsdp_plans[key] = fsdp_plan(
+                self.param_shapes() if shapes is None else shapes, mesh)
         return self._fsdp_plans[key]
 
     # ------------------------------------------------------------ pieces

@@ -17,8 +17,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_prefill import ops as flash_ops
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.flash_prefill.ref import dense_ref
-from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
-from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref
+from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant, kv_pull_runs
+from repro_torch.kernels.kv_pull.ref import kv_pull_dequant_ref, kv_pull_ref, kv_pull_runs_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention.ops import paged_attention, partitions
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -340,6 +340,30 @@ def test_kv_pull_exact_and_in_place(gen, dtype):
     assert torch.equal(out, kv_pull_ref(src, dst.clone(), sid, did))
     untouched = [i for i in range(10) if i not in (9, 1, 4, 0)]
     assert torch.equal(out[untouched], keep[untouched])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_len", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8, torch.uint8])
+def test_kv_pull_runs_exact_and_in_place(gen, dtype, run_len):
+    """One launch a run of run_len adjacent pages, bit-equal to the plain
+    version; pages no run names keep their bytes; a run past a pool raises."""
+    src = torch.randint(0, 100, (64, 16, 2, 32), generator=gen, device="cuda").to(dtype)
+    dst = torch.randint(0, 100, (48, 16, 2, 32), generator=gen, device="cuda").to(dtype)
+    ss = torch.randperm(64 // run_len, generator=gen, device="cuda")[:5].to(torch.int32)
+    ds = torch.randperm(48 // run_len, generator=gen, device="cuda")[:5].to(torch.int32)
+    keep = dst.clone()
+    before = kv_pull_runs.launches
+    out = kv_pull_runs(src, dst, ss, ds, run_len=run_len)
+    torch.cuda.synchronize()
+    assert out is dst and kv_pull_runs.launches == before + 1
+    assert torch.equal(out, kv_pull_runs_ref(src, keep.clone(), ss, ds, run_len=run_len))
+    named = (ds.long()[:, None] * run_len + torch.arange(run_len, device="cuda")).reshape(-1)
+    mask = torch.ones(48, dtype=torch.bool, device="cuda")
+    mask[named] = False
+    assert torch.equal(out[mask], keep[mask])
+    with pytest.raises(IndexError, match="kv_pull_runs"):
+        kv_pull_runs(src, dst, ss, ds + 48 // run_len, run_len=run_len)
 
 
 @pytest.mark.cuda

@@ -158,6 +158,42 @@ def test_argument_bytes_are_the_rank_s_real_shards(arch, tmp_path, monkeypatch):
         assert got["memory"]["argument_bytes"] == want, (arch, shape)
 
 
+@pytest.mark.parametrize("arch", ["yi-9b", "hymba-1.5b"])
+def test_train_temporaries_exclude_the_param_tree(arch, monkeypatch):
+    """A train step's counted temporaries are its own: the param tree on
+    meta (FSDP plan, train placements) is built when the step is made,
+    never inside the counted call.  The count equals that of the same step
+    with the tree built beforehand, operations and collectives alike."""
+    cfg = get_smoke_config(arch)
+    kw = dict(batch=2, seq=8)
+    inside = []
+    count_step = dryrun.count_step
+
+    def watched(fn, *args):
+        inside.append(True)
+        try:
+            return count_step(fn, *args)
+        finally:
+            inside.pop()
+
+    built = []
+    cls = type(build_model(cfg, device="meta"))
+    shapes = cls.param_shapes
+    monkeypatch.setattr(cls, "param_shapes",
+                        lambda self: built.append(bool(inside)) or shapes(self))
+    monkeypatch.setattr(dryrun, "count_step", watched)
+    got = dryrun.count(cfg, "train", _shape((2, 2)), 0, **kw)
+    assert built and not any(built)   # every tree built outside the count
+
+    tree = {}
+    monkeypatch.setattr(cls, "param_shapes",
+                        lambda self: tree.setdefault("t", shapes(self)))
+    before = dryrun.count(cfg, "train", _shape((2, 2)), 0, **kw)
+    assert got.temp_bytes == before.temp_bytes
+    assert got.flops == before.flops
+    assert _records(got.records) == _records(before.records)
+
+
 def test_full_depth_is_the_two_unit_extrapolation():
     import dataclasses
 

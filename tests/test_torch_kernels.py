@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels.flash_prefill.ref import blockwise_ref as jax_blockwise_ref
 from repro.kernels.flash_prefill.ref import dense_ref as jax_dense_ref
+from repro.kernels.kv_pull.kernel import kv_pull_runs as jax_runs_kernel
 from repro.kernels.kv_pull.ref import (
     kv_pull_dequant_ref as jax_dequant_ref,
     kv_pull_ref as jax_pull_ref,
@@ -21,7 +22,9 @@ from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_r
 from repro.models.flash import pair_schedule as jax_pair_schedule
 from repro_torch.bridge import tensor_from_numpy
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
-from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant, kv_pull_runs, work
+from repro_torch.kernels.kv_pull.ref import kv_pull_runs_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models.flash import pair_schedule
 
@@ -158,6 +161,120 @@ class TestKVPull:
         out = kv_pull(torch.from_numpy(src).float(), torch.from_numpy(dst).float(),
                       torch.from_numpy(sid), torch.from_numpy(did))
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+    # (n_src, n_dst, page shape, src starts, dst starts, zero dst): the cases
+    # of tests/test_kernels.py::TestKVPull test_coalesced_runs and
+    # test_full_request_transfer_shape (1024 blocks in runs of 8)
+    RUN_CASES = {
+        "coalesced": (16, 16, (8, 2, 64), [0, 2], [3, 1], False),
+        "full_request": (64, 64, (16, 2, 32), list(range(8)), list(range(8)), True),
+    }
+
+    def _runs_inputs(self, case, run_len, dtype):
+        n_src, n_dst, page, ss, ds, zero = self.RUN_CASES[case]
+        rng = np.random.default_rng(run_len)
+        src = rng.standard_normal((n_src,) + page)
+        dst = np.zeros((n_dst,) + page) if zero else rng.standard_normal((n_dst,) + page)
+        ss, ds = np.asarray(ss, np.int32), np.asarray(ds, np.int32)
+        assert (max(ss.max(), ds.max()) + 1) * run_len <= min(n_src, n_dst)
+        return both(src, dtype), both(dst, dtype), ss, ds
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("case,run_len", [("coalesced", 1), ("coalesced", 2),
+                                              ("coalesced", 4), ("full_request", 1),
+                                              ("full_request", 2), ("full_request", 4),
+                                              ("full_request", 8)])
+    def test_runs_match_jax_exactly(self, case, run_len, dtype):
+        """The port's kv_pull_runs on the CPU equals the JAX kv_pull_runs_ref
+        and the Pallas kernel in interpret mode, bit for bit; pages no run
+        names keep their bytes."""
+        (sj, st), (dj, dt), ss, ds = self._runs_inputs(case, run_len, dtype)
+        keep = dt.clone()
+        ref = jax_runs_ref(sj, dj, jnp.asarray(ss), jnp.asarray(ds), run_len=run_len)
+        out = kv_pull_runs(st, dt, torch.from_numpy(ss), torch.from_numpy(ds),
+                           run_len=run_len)
+        assert out is dt   # in place
+        ref_t = tensor_from_numpy(np.asarray(ref))
+        assert torch.equal(out, ref_t)
+        kernel = jax_runs_kernel(sj, dj, jnp.asarray(ss), jnp.asarray(ds), run_len=run_len,
+                                 interpret=True)
+        assert torch.equal(out, tensor_from_numpy(np.asarray(kernel)))
+        named = {d * run_len + j for d in ds for j in range(run_len)}
+        untouched = [i for i in range(len(keep)) if i not in named]
+        assert torch.equal(out[untouched], keep[untouched])
+
+    @pytest.mark.parametrize("run_len", [1, 2, 4, 8])
+    def test_runs_equal_kv_pull_on_expanded_ids(self, run_len):
+        """A run-granular pull moves the bytes of kv_pull over its runs
+        expanded into page ids (what the transfer engine launches), on a
+        uint8 slab of random runs."""
+        gen = torch.Generator().manual_seed(run_len)
+        src = torch.randint(0, 256, (64, 96), dtype=torch.uint8, generator=gen)
+        dst = torch.randint(0, 256, (48, 96), dtype=torch.uint8, generator=gen)
+        n = 4
+        ss = torch.randperm(64 // run_len, generator=gen)[:n].to(torch.int32)
+        ds = torch.randperm(48 // run_len, generator=gen)[:n].to(torch.int32)
+        pages = torch.arange(run_len, dtype=torch.int32)
+        sid = (ss[:, None] * run_len + pages).reshape(-1)
+        did = (ds[:, None] * run_len + pages).reshape(-1)
+        want = kv_pull(src, dst.clone(), sid, did)
+        assert torch.equal(kv_pull_runs(src, dst.clone(), ss, ds, run_len=run_len), want)
+        assert torch.equal(kv_pull_runs_ref(src, dst.clone(), ss, ds, run_len=run_len), want)
+
+    @pytest.mark.parametrize("ss,ds,run_len", [
+        ([0, 2], [0, 1], 8),    # src run 2: pages 16..23 of a 16-page pool
+        ([0, 1], [3, 1], 4),    # dst run 3: pages 12..15 of a 12-page pool
+        ([-1, 0], [0, 1], 4),
+        ([0, 1], [0, -1], 2),
+    ])
+    def test_runs_raise_past_either_pool(self, ss, ds, run_len):
+        """A run that leaves either pool raises, and moves nothing."""
+        src, dst = torch.randn(16, 4), torch.randn(12, 4)
+        keep = dst.clone()
+        with pytest.raises(IndexError, match="kv_pull_runs"):
+            kv_pull_runs(src, dst, torch.tensor(ss, dtype=torch.int32),
+                         torch.tensor(ds, dtype=torch.int32), run_len=run_len)
+        assert torch.equal(dst, keep)
+
+    def test_runs_check_arguments(self):
+        src = torch.zeros(8, 4)
+        starts = torch.zeros(1, dtype=torch.int32)
+        with pytest.raises(ValueError, match="run_len"):
+            kv_pull_runs(src, src.clone(), starts, starts, run_len=0)
+        with pytest.raises(TypeError, match="int32"):
+            kv_pull_runs(src, src.clone(), starts.long(), starts.long(), run_len=2)
+        with pytest.raises(TypeError, match="dtype"):
+            kv_pull_runs(src, src.to(torch.bfloat16), starts, starts, run_len=2)
+        before = kv_pull_runs.launches
+        kv_pull_runs(src, src.clone(), starts, starts, run_len=2)
+        assert kv_pull_runs.launches == before  # the plain version is no launch
+
+    @pytest.mark.parametrize("run_len", [1, 8])
+    def test_runs_on_meta_count_their_work(self, run_len):
+        """On meta tensors kv_pull_runs launches nothing and counts its
+        bound's formula: each page of each run read and written once, a
+        run's two starts read once."""
+        n_runs, page = 13, (32, 4, 128)
+        src = torch.empty((1024,) + page, dtype=torch.bfloat16, device="meta")
+        dst = torch.empty((512,) + page, dtype=torch.bfloat16, device="meta")
+        starts = torch.empty((n_runs,), dtype=torch.int32, device="meta")
+        kbuild.reset_meta()
+        out = kv_pull_runs(src, dst, starts, starts, run_len=run_len)
+        assert out is dst
+        page_bytes = 32 * 4 * 128 * 2
+        assert work(n_runs, page_bytes, page_bytes, run_len) == (
+            0, n_runs * (2 * run_len * page_bytes + 8))
+        assert (kbuild.META_WORK["flops"], kbuild.META_WORK["bytes"]) == \
+            work(n_runs, page_bytes, page_bytes, run_len)
+        assert kbuild.META_WORK["calls"] == {"kv_pull_runs": 1}
+        # kv_pull over the runs' page ids moves the same pages, and reads
+        # two ids a page where kv_pull_runs reads two starts a run
+        kbuild.reset_meta()
+        ids = torch.empty((n_runs * run_len,), dtype=torch.int32, device="meta")
+        kv_pull(src, dst, ids, ids)
+        assert kbuild.META_WORK["bytes"] == work(n_runs * run_len, page_bytes, page_bytes)[1]
+        assert kbuild.META_WORK["bytes"] - work(n_runs, page_bytes, page_bytes, run_len)[1] \
+            == 8 * n_runs * (run_len - 1)
 
     @pytest.mark.parametrize("dst_dtype", ["float32", "bfloat16"])
     def test_dequant_matches_jax_bit_for_bit(self, dst_dtype):

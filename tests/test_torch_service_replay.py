@@ -18,7 +18,12 @@ Replayed: ``test_serve_loop.py``, ``test_delta_transfer.py`` and
 ``test_async_engine.py`` (service, engine and layer-streamed cases, the
 2048-byte reads on 4096-byte pages included), the service cases of
 ``test_fleet.py`` and of ``test_layerwise.py`` with its engine-level
-``TestWaitLayer``.  Cases that read the slab through numpy (bf16 tensors
+``TestWaitLayer``, and ``test_sched.py`` and ``test_obs.py`` whole, with
+the port's ``obs`` and ``sim`` swapped in too, but for one case that
+tests reference-only code: ``test_obs.py``'s
+``TestBenchTrajectory.test_run_only_rejects_unknown_prefix`` imports the
+reference's benchmark runner (``benchmarks.run``), which the port does
+not have.  Cases that read the slab through numpy (bf16 tensors
 have no numpy form) or spy on the JAX model are re-stated below on the
 port's tensors and model; the margin-exhaustion case, which decodes past
 a page boundary, compares with the JAX service on the same weights (a
@@ -47,7 +52,7 @@ from repro_torch.serving import engine as pt_workers
 from repro_torch.serving.request import RequestState
 
 TESTS = pathlib.Path(__file__).resolve().parent
-PORTED = r"\b(from|import) repro\.(core|sched|fleet|serving|topo)\b"
+PORTED = ("core", "sched", "fleet", "serving", "topo")
 
 
 class F32DecoderLM(JaxDecoderLM):
@@ -88,13 +93,17 @@ def replay_region(worker_id, base_address, buffer, page_nbytes=0):
     return pt_engine.MemoryRegion(worker_id, base_address, buffer, page_nbytes)
 
 
-def load(name: str, prefix: str, classes: dict[str, dict]) -> tuple[dict, types.ModuleType]:
-    """Load ``tests/<name>.py`` with the port's serving stack.  Returns its
+def load(name: str, prefix: str, classes: dict[str, dict], functions=(),
+         ported=PORTED) -> tuple[dict, types.ModuleType]:
+    """Load ``tests/<name>.py`` with the port's modules ``ported`` (the
+    serving stack by default) in place of the reference's.  Returns its
     selected test classes, each with the listed methods replaced (or, for
-    None, left out), and its module-level fixtures, all renamed with
-    ``prefix``; and the loaded module."""
+    None, left out), its module-level test ``functions`` and its
+    module-level fixtures, all renamed with ``prefix``; and the loaded
+    module."""
     text = (TESTS / f"{name}.py").read_text()
-    text = re.sub(PORTED, lambda m: f"{m.group(1)} repro_torch.{m.group(2)}", text)
+    text = re.sub(rf"\b(from|import) repro\.({'|'.join(ported)})\b",
+                  lambda m: f"{m.group(1)} repro_torch.{m.group(2)}", text)
     fixtures = re.findall(r"^@pytest\.fixture[^\n]*\n(?:@[^\n]*\n)*def (\w+)", text, re.M)
     for fx in fixtures:
         text = re.sub(rf"\b{fx}\b", f"{prefix}_{fx}", text)
@@ -110,6 +119,8 @@ def load(name: str, prefix: str, classes: dict[str, dict]) -> tuple[dict, types.
     for cls_name, methods in classes.items():
         cls = getattr(mod, cls_name)
         out[f"Test{prefix}{cls_name[4:]}"] = type(cls_name, (cls,), dict(methods))
+    for fn in functions:
+        out[f"test_{prefix}_{fn[5:]}"] = getattr(mod, fn)
     return out, mod
 
 
@@ -337,5 +348,16 @@ _exports, ASYNC = load("test_async_engine", "Async", {
                               async_layer0_first},
     "TestOverlappedService": {"test_build_state_page_cache_matches_fresh_gather":
                               async_build_state_cache}})
+globals().update(_exports)
+_exports, _ = load("test_sched", "Sched", {
+    "TestLoadPiggyback": {}, "TestPolicies": {}, "TestRouter": {},
+    "TestMemoryRegionOverlap": {}, "TestMultiWorkerService": {}, "TestSimPolicies": {}},
+    ported=PORTED + ("obs", "sim"))
+globals().update(_exports)
+_exports, _ = load("test_obs", "Obs", {
+    "TestTracer": {}, "TestMetrics": {},
+    "TestBenchTrajectory": {"test_run_only_rejects_unknown_prefix": None},
+    "TestStallForensics": {}, "TestLiveTracing": {}, "TestPulledBytesAccounting": {}},
+    ported=PORTED + ("obs", "sim"))
 globals().update(_exports)
 del _exports
