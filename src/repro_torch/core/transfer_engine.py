@@ -14,8 +14,9 @@ COMPLETE messages.  Two *modes* reproduce the paper's comparison:
 Two *backends* separate mechanism from timing:
 
 * ``memcpy``  — actually moves bytes between worker address spaces
-  (torch slabs on the workers' devices); wall time is measured.  This is what
-  the correctness tests and Fig. 15 measurements use.
+  (torch slabs on the workers' devices).  This is what the correctness
+  tests and Fig. 15 measurements use; a traced engine records each pull's
+  wall time as a ``pull`` span.
 * ``timed``   — additionally accrues a modeled clock from ``LinkModel``
   (per-verb post overhead, RPC latency, kernel-launch/sync costs from the
   paper's Fig. 3 breakdown, link bandwidth).  The event simulator and the
@@ -43,7 +44,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Callable, Iterable, Sequence
 
 import torch
@@ -141,7 +141,6 @@ class TransferStats:
     txns_submitted: int = 0         # original read transactions
     completes: int = 0
     modeled_time_s: float = 0.0     # LinkModel clock
-    wall_time_s: float = 0.0        # measured memcpy time
     rounds: int = 0                 # message-mode staging rounds
 
     @property
@@ -150,6 +149,20 @@ class TransferStats:
 
     def modeled_bandwidth_Bps(self) -> float:
         return self.bytes_moved / self.modeled_time_s if self.modeled_time_s else 0.0
+
+
+@dataclasses.dataclass
+class _PullTrace:
+    """A traced pull in flight: when it was submitted, the request's
+    landed bytes then (a retry's count starts from them), the last layer's
+    end, and its read transactions and ``progress`` calls so far."""
+
+    t0: float
+    bytes0: int
+    mark: float
+    txns: int = 0
+    pumps: int = 0
+    last_call: int = -1
 
 
 class ConnectionTornError(KeyError):
@@ -395,14 +408,15 @@ class TransferEngine:
         self.tick_budget = tick_budget
         self.stats = TransferStats()
         # Observability (optional; see docs/observability.md): the tracer
-        # records the per-request pull lifecycle — submit instant, one
-        # span per layer as its reads land, complete/torn instant — on
-        # the request's track, so a serve trace shows the wire timeline
-        # under the decode timeline.  The metrics registry accumulates
-        # engine totals (bytes, reads, completes, teardowns).
+        # records each request's pull on the request's track — one span
+        # per layer as its reads land, and one ``pull`` span from the
+        # first submit to the resolution — so a serve trace shows the
+        # wire timeline under the decode timeline.  The metrics registry
+        # accumulates engine totals (bytes, reads, completes, teardowns).
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics
-        self._layer_mark: dict[str, float] = {}  # rid -> last layer-end ts
+        self._pulls: dict[str, _PullTrace] = {}  # traced pulls in flight
+        self._progress_calls = 0
 
     # ------------------------------------------------------------- setup
     def register_memory(self, region: MemoryRegion) -> None:
@@ -481,9 +495,8 @@ class TransferEngine:
                 created.append(fut)
                 if self.tracer.enabled:
                     now = self.tracer.now()
-                    self._layer_mark[t.request_id] = now
-                    self.tracer.instant("transfer.submit", ts=now,
-                                        track=("request", t.request_id))
+                    self._pulls[t.request_id] = _PullTrace(
+                        now, self._pulled_bytes.get(t.request_id, 0), now)
                 if self.metrics is not None:
                     self.metrics.inc("engine.pulls_submitted")
             self._queue.append(t)
@@ -504,13 +517,13 @@ class TransferEngine:
         fut._error = error
         self._futures.pop(fut.request_id, None)
         self._completions.append(fut)
-        self._layer_mark.pop(fut.request_id, None)
-        if self.tracer.enabled:
-            self.tracer.instant(
-                "transfer.torn" if error is not None else "transfer.complete",
-                track=("request", fut.request_id),
-                bytes=self._pulled_bytes.get(fut.request_id, 0),
-                **({"error": str(error)} if error is not None else {}))
+        pull = self._pulls.pop(fut.request_id, None)
+        if pull is not None:
+            rid = fut.request_id
+            self.tracer.complete(
+                "pull", ("request", rid), pull.t0, self.tracer.now(),
+                txns=pull.txns, pumps=pull.pumps, torn=error is not None,
+                bytes=self._pulled_bytes.get(rid, 0) - pull.bytes0)
         if self.metrics is not None and error is not None:
             self.metrics.inc("engine.pulls_torn")
         for cb in fut._cbs:
@@ -535,6 +548,7 @@ class TransferEngine:
         bytes moved are identical, only ``reads_posted`` can differ from a
         one-shot ``drain()``."""
         processed = 0
+        self._progress_calls += 1
         while self._queue and (budget is None or processed < budget):
             if isinstance(self._queue[0], CompleteTxn):
                 self._do_complete(self._queue.popleft())  # type: ignore[arg-type]
@@ -626,8 +640,8 @@ class TransferEngine:
         healthy, torn_err = self._filter_torn(window)
         for t in healthy:
             self._pulled_bytes[t.request_id] += t.nbytes
+        self._trace_executed(healthy)
         merged = coalesce(healthy, strategy=self.coalescing)
-        t0 = time.perf_counter()
         self._land(merged)
         for op in merged:
             self.stats.reads_posted += 1
@@ -635,7 +649,6 @@ class TransferEngine:
             wire = op.nbytes // 2 + 4 if quantized else op.nbytes
             self.stats.bytes_moved += wire
             self.stats.modeled_time_s += self.link.read_time(wire)
-        self.stats.wall_time_s += time.perf_counter() - t0
         if self.metrics is not None and merged:
             self.metrics.inc("engine.reads_posted", len(merged))
             self.metrics.inc("engine.bytes_moved",
@@ -657,7 +670,7 @@ class TransferEngine:
         healthy, torn_err = self._filter_torn(window)
         for t in healthy:
             self._pulled_bytes[t.request_id] += t.nbytes
-        t0 = time.perf_counter()
+        self._trace_executed(healthy)
         round_txns: list[ReadTxn] = []
         round_bytes = 0
         for t in list(healthy) + [None]:  # type: ignore[list-item]
@@ -688,12 +701,26 @@ class TransferEngine:
             if t is not None:
                 round_txns.append(t)
                 round_bytes += t.nbytes
-        self.stats.wall_time_s += time.perf_counter() - t0
         self._account_executed(window)
         if torn_err is not None:
             raise torn_err
 
     # ------------------------------------------------------------ common
+    def _trace_executed(self, txns: Sequence[Txn]) -> None:
+        """Count executed transactions on their requests' traced pulls:
+        read transactions, and the ``progress`` calls that ran any."""
+        if not self._pulls:
+            return
+        for t in txns:
+            pull = self._pulls.get(t.request_id)
+            if pull is None:
+                continue
+            if isinstance(t, ReadTxn):
+                pull.txns += 1
+            if pull.last_call != self._progress_calls:
+                pull.last_call = self._progress_calls
+                pull.pumps += 1
+
     def _account_executed(self, window: Sequence[ReadTxn]) -> None:
         """Post-execution bookkeeping: outstanding-read counters and
         per-layer completion marks on the requests' futures."""
@@ -705,15 +732,15 @@ class TransferEngine:
             self._outstanding_layer[key] -= 1
             if self._outstanding_layer[key] <= 0:
                 del self._outstanding_layer[key]
-                if self.tracer.enabled:
+                pull = self._pulls.get(t.request_id)
+                if pull is not None:
                     # one span per landed layer: previous layer's end (or
-                    # the submit mark) -> now, on the request's track
+                    # the submit) -> now, on the request's track
                     now = self.tracer.now()
-                    t0 = self._layer_mark.get(t.request_id, now)
                     self.tracer.complete(
                         f"transfer.layer{t.layer}", ("request", t.request_id),
-                        t0, now, layer=t.layer)
-                    self._layer_mark[t.request_id] = now
+                        pull.mark, now, layer=t.layer)
+                    pull.mark = now
                 fut = self._futures.get(t.request_id)
                 if fut is not None:
                     fut._layers_done.append(t.layer)
@@ -866,6 +893,7 @@ class TransferEngine:
         self.stats.modeled_time_s += self.link.ack_rtt_s
         if self.metrics is not None:
             self.metrics.inc("engine.completes")
+        self._trace_executed((txn,))
         for cb in self._complete_cbs:
             cb(txn)
         fut = self._futures.get(txn.request_id)

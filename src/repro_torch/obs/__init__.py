@@ -2,20 +2,13 @@
 
 One span tracer (injectable clock, near-zero disabled path, Chrome
 trace-event export), one metrics registry (counters / gauges / windowed
-histograms), a per-request Fig.-14 breakdown computed from spans, and
-the ``BENCH_*.json`` per-PR benchmark trajectory.  See
+histograms), a per-request Fig.-14 breakdown computed from spans.  See
 docs/observability.md for the contract.
 
-Copy of ``src/repro/obs/__init__.py`` with its imports renamed to ``repro_torch``.
+The JAX package's ``repro.obs`` also holds the ``BENCH_*.json`` per-PR
+benchmark trajectory, which the port leaves out: its benchmark is
+``kvbench/``.
 """
-from repro_torch.obs.bench import (
-    BENCH_SCHEMA_VERSION,
-    BenchEntry,
-    BenchTrajectory,
-    bench_path,
-    load_trajectory,
-    validate_bench,
-)
 from repro_torch.obs.breakdown import (
     PHASE_CATEGORY,
     RequestBreakdown,
@@ -28,12 +21,6 @@ from repro_torch.obs.metrics import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER, Span, Tracer, track_name
 
 __all__ = [
-    "BENCH_SCHEMA_VERSION",
-    "BenchEntry",
-    "BenchTrajectory",
-    "bench_path",
-    "load_trajectory",
-    "validate_bench",
     "PHASE_CATEGORY",
     "RequestBreakdown",
     "all_request_breakdowns",

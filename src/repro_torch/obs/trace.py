@@ -33,7 +33,20 @@ named thread per track, "X" complete events with microsecond timestamps
 — any serve run becomes a browsable timeline, the live analogue of the
 paper's Fig. 3.
 
-Copy of ``src/repro/obs/trace.py`` with its imports renamed to ``repro_torch``.
+The wall-clock anchor: ``anchor()`` pairs the tracer's clock with
+``time.time_ns()`` and keeps the tightest of five back-to-back reads as
+``anchor_at = (t, wall_ns, err_ns)``: ``t`` the midpoint of the bracket
+on the tracer's clock, ``wall_ns`` the wall clock read inside it,
+``err_ns`` the bracket's width.  ``clear()`` takes one, so a run that
+clears its warm-up spans has an anchor beside the spans it then records;
+it is an attribute, never a span or an instant.  A device trace stamped
+on the wall clock (``torch.profiler`` stamps kineto events with
+CLOCK_REALTIME, ``time.time_ns()``'s clock) goes onto the spans' clock
+by ``t + (ev_ns - wall_ns) * 1e-9``, good to ``err_ns`` plus the two
+clocks' drift since the anchor.  A disabled tracer takes no anchor.
+
+The JAX package's ``repro.obs.trace`` is the same tracer without the
+anchor.
 """
 from __future__ import annotations
 
@@ -132,10 +145,23 @@ class Tracer:
         self.instants: list[Span] = []       # point events (t1 == t0)
         self._open_phase: dict[Any, Span] = {}   # track -> open phase span
         self._stack: dict[Any, list[Span]] = {}  # track -> open scoped spans
+        self.anchor_at: tuple[float, int, int] | None = None
 
     # ------------------------------------------------------------- clock
     def now(self) -> float:
         return self.clock()
+
+    def anchor(self) -> tuple[float, int, int] | None:
+        """Pair the tracer's clock with ``time.time_ns()``: of five
+        brackets ``clock(); time_ns(); clock()`` keep the narrowest, as
+        ``anchor_at = (midpoint, wall_ns, width_ns)``.  None when
+        disabled (no clock is read)."""
+        if not self.enabled:
+            return None
+        a, wall, b = min(((self.clock(), time.time_ns(), self.clock()) for _ in range(5)),
+                         key=lambda r: r[2] - r[0])
+        self.anchor_at = (0.5 * (a + b), wall, round((b - a) * 1e9))
+        return self.anchor_at
 
     # ----------------------------------------------------- scoped spans
     def span(self, name: str, *, track="main", ts: float | None = None,
@@ -222,10 +248,12 @@ class Tracer:
         return list(seen)
 
     def clear(self) -> None:
+        """Drop every span and instant, and take a fresh clock anchor."""
         self.spans.clear()
         self.instants.clear()
         self._open_phase.clear()
         self._stack.clear()
+        self.anchor()
 
     # ----------------------------------------------------- chrome export
     def to_chrome(self, *, process_name: str = "kvdirect") -> dict:

@@ -278,7 +278,8 @@ class DisaggService:
         w = PrefillWorker(_winfo(wid, "prefill"), self.model, self.params,
                           num_blocks=num_blocks,
                           base_address=self._alloc_base(num_blocks),
-                          quantize_transfer=self.quantize_transfer)
+                          quantize_transfer=self.quantize_transfer,
+                          tracer=self.tracer)
         self.prefills[wid] = w
         self.engine.register_memory(w.cache.memory_region())
         # seed liveness at the CURRENT clock, else a worker added late is

@@ -14,6 +14,15 @@ page cache, the batch state and the layerwise fetch are gathered straight
 from the slab in its own dtype); block digests copy each parked block's
 bytes to the host once; the int8 scales come from one device reduction.
 Swapped-out KV (``SwappedKV``) is parked in host memory in bf16.
+
+Tracing (with an enabled tracer; the disabled one costs an attribute
+check a site): a prefill records ``prefill.forward`` (the model and the
+first token's argmax), ``prefill.park``, ``prefill.digest`` and, with
+``quantize_transfer``, ``prefill.quant`` on the prefill worker's track;
+a decode step records ``step.pump``, ``step.rebuild``, ``step.launch``
+(the host issuing the forward and the argmax) and ``step.sync`` (the
+host waiting for the step's tokens) on the decode worker's track, inside
+the serving loop's ``tick.step``.  The parts of a step do not overlap.
 """
 from __future__ import annotations
 
@@ -40,11 +49,13 @@ __all__ = ["PrefillWorker", "DecodeWorker", "SwappedKV"]
 class PrefillWorker:
     def __init__(self, info: WorkerInfo, model, params, *, num_blocks: int = 256,
                  base_address: int = 0x7F06F40000,
-                 quantize_transfer: bool = False):
+                 quantize_transfer: bool = False,
+                 tracer=None):
         """``quantize_transfer``: compute per-(layer, block, plane) int8
         scales at park time so decode-side pulls move quantized wire
         bytes with the scale carried in each ``ReadTxn`` descriptor
         (docs/transfer.md § quantized transfer)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         cfg = model.cfg
         if not cfg.has_attention or cfg.sliding_window:
             raise NotImplementedError(
@@ -98,30 +109,38 @@ class PrefillWorker:
                 for layer in range(self.cache.num_layers)]
 
     def _compute_and_park(
-        self, tokens: np.ndarray
+        self, tokens: np.ndarray, rid: str | None = None
     ) -> tuple[int, list[int], list[str], list | None]:
         """Run the model prefill and land the KV pages in the slab.
         Returns (first token, allocated blocks, per-block content hashes,
         quant scales or None).  Capacity is checked UP FRONT: a full pool
         must raise before any state transition or model compute — a
         queued dispatch retries from QUEUED_PREFILL, which an
-        after-the-fact OutOfBlocks would strand in PREFILLING."""
+        after-the-fact OutOfBlocks would strand in PREFILLING.  ``rid``
+        tags the spans (None for a hedge twin's shadow prefill)."""
         need = BlockPool.blocks_for_tokens(len(tokens), self.block_size)
         if not self.pool.can_allocate(need):
             raise OutOfBlocks(f"need {need} blocks: pool {self.pool.describe()}")
-        logits, state = self.model.prefill(
-            self.params,
-            {"tokens": torch.as_tensor(np.asarray(tokens)[None], device=self.device)},
-            max_blocks_margin=0, remat=False,
-        )
-        k_pages = state.k_pages[:, 0]  # [L, spb, bs, g, hd]
-        v_pages = state.v_pages[:, 0]
-        spb = k_pages.shape[1]
-        blocks = self.pool.allocate(spb)
-        self.cache.write_blocks(blocks, k_pages, v_pages)
-        first = int(torch.argmax(logits[0, : self.model.cfg.vocab_size].float()))
-        hashes = self._digest_blocks(blocks)
-        scales = self._quant_scales(blocks) if self.quantize_transfer else None
+        tr, track, n = self.tracer, ("worker", self.info.worker_id), len(tokens)
+        with tr.span("prefill.forward", track=track, rid=rid, tokens=n):
+            logits, state = self.model.prefill(
+                self.params,
+                {"tokens": torch.as_tensor(np.asarray(tokens)[None], device=self.device)},
+                max_blocks_margin=0, remat=False,
+            )
+            first = int(torch.argmax(logits[0, : self.model.cfg.vocab_size].float()))
+        with tr.span("prefill.park", track=track, rid=rid, tokens=n):
+            k_pages = state.k_pages[:, 0]  # [L, spb, bs, g, hd]
+            v_pages = state.v_pages[:, 0]
+            blocks = self.pool.allocate(k_pages.shape[1])
+            self.cache.write_blocks(blocks, k_pages, v_pages)
+        with tr.span("prefill.digest", track=track, rid=rid, tokens=n,
+                     bytes=len(blocks) * self.cache.block_total_nbytes):
+            hashes = self._digest_blocks(blocks)
+        scales = None
+        if self.quantize_transfer:
+            with tr.span("prefill.quant", track=track, rid=rid, tokens=n):
+                scales = self._quant_scales(blocks)
         return first, blocks, hashes, scales
 
     def prefill(self, req: Request, tokens: np.ndarray) -> int:
@@ -134,7 +153,7 @@ class PrefillWorker:
             raise OutOfBlocks(f"need {need} blocks: pool {self.pool.describe()}")
         req.to(RequestState.PREFILLING)
         first, req.prefill_blocks, req.block_hashes, req.kv_scales = \
-            self._compute_and_park(tokens)
+            self._compute_and_park(tokens, req.request_id)
         return first
 
     def prefill_shadow(
@@ -151,6 +170,10 @@ class PrefillWorker:
         if req.prefill_blocks:
             self.pool.free(req.prefill_blocks)
             req.prefill_blocks = []
+
+
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 @dataclasses.dataclass
@@ -284,16 +307,10 @@ class DecodeWorker:
         # landed) and purge when the pool actually releases the block.
         self._hash_index: dict[str, int] = {}
         self._block_hash: dict[int, str] = {}
+        self._track = ("worker", info.worker_id)  # the step spans' track
+        self.pumped = 0  # transactions the last ``pump`` executed
 
     # ------------------------------------------------------------ admit
-    @property
-    def _block_nbytes(self) -> int:
-        """Slab bytes one block occupies across all layers and both
-        planes — the logical bytes a full pull would move for it (the
-        same basis ``TransferEngine._pulled_bytes`` counts, so pulled +
-        reused always sums to the request's total KV footprint)."""
-        return self.cache.block_nbytes * 2 * self.model.cfg.num_layers
-
     def _plan_reuse(self, req: Request) -> dict[int, int]:
         """Delta transfer plan: block POSITION -> resident slab block
         already holding that position's KV bytes.  Two sources, prefix
@@ -369,18 +386,19 @@ class DecodeWorker:
         it = iter(fresh)
         blocks = [reuse[p] if p in reuse else next(it) for p in range(n)]
         req.to(RequestState.KV_TRANSFER)
+        # the lifecycle track's "transfer" phase: queue.kv ends the moment
+        # the pull is SUBMITTED (bytes may start moving this tick), so the
+        # engine's ``pull`` span lies inside the phase
+        self.tracer.phase(("request", req.request_id), "transfer",
+                          worker=self.info.worker_id, blocks=len(blocks),
+                          reused_blocks=len(grafted))
         fut = pull_kv_async(req, conn=conn, engine=self.engine,
                             decode_pool=self.pool, decode_cache=self.cache,
                             preallocated=blocks, skip=frozenset(reuse))
         if grafted:
             self.engine.note_reused(req.request_id,
-                                    len(grafted) * self._block_nbytes)
+                                    len(grafted) * self.cache.block_total_nbytes)
         self.inflight[req.request_id] = _InFlight(req, first_token, fut)
-        # the lifecycle track's "transfer" phase: queue.kv ends the moment
-        # the pull is SUBMITTED (bytes may start moving this tick)
-        self.tracer.phase(("request", req.request_id), "transfer",
-                          worker=self.info.worker_id, blocks=len(blocks),
-                          reused_blocks=len(grafted))
         if self.metrics is not None:
             self.metrics.inc("decode.admitted")
             if grafted:
@@ -447,9 +465,11 @@ class DecodeWorker:
         promote every request whose future resolved to DECODING.  Returns
         the promoted request ids.  Failed futures (torn connections) are
         aborted here — their requests stay in KV_TRANSFER for the serving
-        layer's failover to re-route."""
+        layer's failover to re-route.  ``pumped`` holds the transactions
+        the engine executed."""
+        self.pumped = 0
         if self.inflight and self.engine.pending:
-            self.engine.progress(budget)
+            self.pumped = self.engine.progress(budget)
         self.engine.poll()  # keep the shared completion queue drained
         promoted: list[str] = []
         for rid, fl in list(self.inflight.items()):
@@ -599,31 +619,38 @@ class DecodeWorker:
                     v[i, :n] = vplane[idx]
             return k, v
 
-        state = DecodeState(
-            context_lens=self._context_lens(batch),
-            block_tables=tables,
-        )
-        tokens = self._last_tokens(batch)
-        logits, state = self.model.decode_step_layerwise(
-            self.params, state, tokens, fetch)
+        tr = self.tracer
+        with tr.span("step.launch", track=self._track, batch=b):
+            # the layers' fetches pump the engine inside the forward
+            state = DecodeState(
+                context_lens=self._context_lens(batch),
+                block_tables=tables,
+            )
+            tokens = self._last_tokens(batch)
+            logits, state = self.model.decode_step_layerwise(
+                self.params, state, tokens, fetch)
+            tokens = self._argmax_tokens(logits)
         # All layers landed; the pulls' COMPLETE tails resolve now.  A
         # failure here (torn after the last layer, COMPLETE swallowed)
         # invalidates the admission exactly like a mid-layer tear.
-        for fl in streaming:
-            while not fl.future.done():
-                if not self.engine.pending:
-                    raise RuntimeError(
-                        f"transfer of {fl.req.request_id!r} has no COMPLETE queued")
-                self.engine.progress(pump_budget)
-        for fl in streaming:
-            if fl.future.failed:
-                raise fl.future.exception()
-        self.pump(0)  # promote the resolved admissions (no transfer work)
+        with tr.span("step.pump", track=self._track) as s:
+            txns = 0
+            for fl in streaming:
+                while not fl.future.done():
+                    if not self.engine.pending:
+                        raise RuntimeError(
+                            f"transfer of {fl.req.request_id!r} has no COMPLETE queued")
+                    txns += self.engine.progress(pump_budget)
+            for fl in streaming:
+                if fl.future.failed:
+                    raise fl.future.exception()
+            # promote the resolved admissions (no transfer work)
+            s.set(txns=txns, promoted=len(self.pump(0)))
         for r in batch[len(residents):]:
             # keep OUR entry: it reflects the step this round already ran
             self.resident[r.req.request_id] = r
-        tokens = self._argmax_tokens(logits)
-        host = tokens.tolist()
+        with tr.span("step.sync", track=self._track):
+            host = tokens.tolist()
         out: dict[str, list[int]] = {r.req.request_id: [] for r in batch}
         for i, r in enumerate(batch):
             out[r.req.request_id].append(host[i])
@@ -682,8 +709,9 @@ class DecodeWorker:
                      tokens: torch.Tensor) -> dict[str, int]:
         """Record one step's outputs on the residents; returns
         request_id -> token."""
-        ctx = state.context_lens.tolist()
-        host = tokens.tolist()
+        with self.tracer.span("step.sync", track=self._track):
+            ctx = state.context_lens.tolist()
+            host = tokens.tolist()
         out: dict[str, int] = {}
         for i, r in enumerate(batch):
             tok = host[i]
@@ -709,7 +737,9 @@ class DecodeWorker:
         lossless rebuild (see ``_invalidate_step``), so a join/leave never
         changes the tokens of requests already in the batch."""
         if self.consume == "layerwise" and self.inflight:
-            self._invalidate_step()  # caches must be current to co-batch
+            with self.tracer.span("step.rebuild", track=self._track,
+                                  batch=len(self.resident)):
+                self._invalidate_step()  # caches must be current to co-batch
             stream = self._streaming_step(self.step_margin_blocks, pump_budget)
             if stream is not None:
                 batch, state, tokens, out = stream
@@ -717,8 +747,9 @@ class DecodeWorker:
                 # on the very next step (another join, a leave, margin)
                 # writes back and restarts from these fields — stale
                 # values would replay the token and drop an appended page
-                ctx = state.context_lens.tolist()
-                host = tokens.tolist()
+                with self.tracer.span("step.sync", track=self._track):
+                    ctx = state.context_lens.tolist()
+                    host = tokens.tolist()
                 for i, r in enumerate(batch):
                     r.context_len = ctx[i]
                     r.last_token = host[i]
@@ -727,7 +758,7 @@ class DecodeWorker:
         else:
             # promote pulls that resolved since the last step (and nudge
             # the engine while there is in-flight work to hide)
-            self.pump(pump_budget if self.inflight else 0)
+            self._step_pump(pump_budget if self.inflight else 0)
         if not self.resident:
             return {}
         ids = list(self.resident)
@@ -735,20 +766,30 @@ class DecodeWorker:
             r.context_len >= self._step_per_seq * self.block_size
             for r in self.resident.values())
         if ids != self._step_ids or exhausted:
-            self._invalidate_step()
-            batch = list(self.resident.values())
-            state = self._build_state(batch, margin_blocks=self.step_margin_blocks)
-            tokens = self._last_tokens(batch)
-            self._install_step(batch, state, tokens)
+            with self.tracer.span("step.rebuild", track=self._track) as s:
+                self._invalidate_step()
+                batch = list(self.resident.values())
+                state = self._build_state(batch, margin_blocks=self.step_margin_blocks)
+                tokens = self._last_tokens(batch)
+                self._install_step(batch, state, tokens)
+                if self.tracer.enabled:
+                    s.set(batch=len(batch), per_seq=self._step_per_seq,
+                          bytes=_nbytes(state.k_pages, state.v_pages)
+                          + sum(_nbytes(r.k_cached, r.v_cached) for r in batch))
         batch = [self.resident[rid] for rid in self._step_ids]
-        logits, state = self.model.decode_step(
-            self.params, self._step_state, self._step_tokens)
+        with self.tracer.span("step.launch", track=self._track, batch=len(batch)):
+            logits, state = self.model.decode_step(
+                self.params, self._step_state, self._step_tokens)
+            tokens = self._argmax_tokens(logits)
         if self.inflight:
-            self.pump(pump_budget)  # transfer hides behind the step
-        tokens = self._argmax_tokens(logits)
+            self._step_pump(pump_budget)  # transfer hides behind the step
         out = self._commit_step(batch, state, tokens)
         self._step_state, self._step_tokens = state, tokens
         return out
+
+    def _step_pump(self, budget: int) -> None:
+        with self.tracer.span("step.pump", track=self._track) as s:
+            s.set(promoted=len(self.pump(budget)), txns=self.pumped)
 
     def decode_round(self, max_new: int = 8, *,
                      pump_budget: int | None = 32) -> dict[str, list[int]]:

@@ -141,6 +141,14 @@ class PagedKVCache:
         return self.block_size * self.kv_heads * self.head_dim * self.itemsize
 
     @property
+    def block_total_nbytes(self) -> int:
+        """Slab bytes one block occupies across all layers and both
+        planes: the logical bytes a full pull moves for it (the basis
+        ``TransferEngine._pulled_bytes`` counts, so pulled + reused sums
+        to a request's whole KV footprint)."""
+        return self.block_nbytes * 2 * self.num_layers
+
+    @property
     def nbytes(self) -> int:
         return self._slab.numel()
 

@@ -19,11 +19,12 @@ Replayed: ``test_serve_loop.py``, ``test_delta_transfer.py`` and
 2048-byte reads on 4096-byte pages included), the service cases of
 ``test_fleet.py`` and of ``test_layerwise.py`` with its engine-level
 ``TestWaitLayer``, and ``test_sched.py`` and ``test_obs.py`` whole, with
-the port's ``obs`` and ``sim`` swapped in too, but for one case that
-tests reference-only code: ``test_obs.py``'s
-``TestBenchTrajectory.test_run_only_rejects_unknown_prefix`` imports the
-reference's benchmark runner (``benchmarks.run``), which the port does
-not have.  Cases that read the slab through numpy (bf16 tensors
+the port's ``obs`` and ``sim`` swapped in too, but for ``test_obs.py``'s
+``TestBenchTrajectory``, which tests reference-only code: the
+``BENCH_*.json`` trajectory (``repro.obs.bench``), which the port leaves
+out, and the reference's benchmark runner (``benchmarks.run``); the
+file's import of the four trajectory names is served by the reference's
+module so that the file loads.  Cases that read the slab through numpy (bf16 tensors
 have no numpy form) or spy on the JAX model are re-stated below on the
 port's tensors and model; the margin-exhaustion case, which decodes past
 a page boundary, compares with the JAX service on the same weights (a
@@ -94,16 +95,24 @@ def replay_region(worker_id, base_address, buffer, page_nbytes=0):
 
 
 def load(name: str, prefix: str, classes: dict[str, dict], functions=(),
-         ported=PORTED) -> tuple[dict, types.ModuleType]:
+         ported=PORTED, reference: dict[str, tuple[str, ...]] | None = None,
+         ) -> tuple[dict, types.ModuleType]:
     """Load ``tests/<name>.py`` with the port's modules ``ported`` (the
     serving stack by default) in place of the reference's.  Returns its
     selected test classes, each with the listed methods replaced (or, for
     None, left out), its module-level test ``functions`` and its
     module-level fixtures, all renamed with ``prefix``; and the loaded
-    module."""
+    module.  ``reference`` maps a reference module to names the file
+    imports one a line from a ported package that the port leaves out:
+    they are taken from that module instead."""
     text = (TESTS / f"{name}.py").read_text()
     text = re.sub(rf"\b(from|import) repro\.({'|'.join(ported)})\b",
                   lambda m: f"{m.group(1)} repro_torch.{m.group(2)}", text)
+    for module, names in (reference or {}).items():
+        for n in names:
+            text, k = re.subn(rf"^[ \t]+{n},\n", "", text, flags=re.M)
+            assert k == 1, (name, n)
+        text += f"\nfrom {module} import {', '.join(names)}\n"
     fixtures = re.findall(r"^@pytest\.fixture[^\n]*\n(?:@[^\n]*\n)*def (\w+)", text, re.M)
     for fx in fixtures:
         text = re.sub(rf"\b{fx}\b", f"{prefix}_{fx}", text)
@@ -356,8 +365,9 @@ _exports, _ = load("test_sched", "Sched", {
 globals().update(_exports)
 _exports, _ = load("test_obs", "Obs", {
     "TestTracer": {}, "TestMetrics": {},
-    "TestBenchTrajectory": {"test_run_only_rejects_unknown_prefix": None},
     "TestStallForensics": {}, "TestLiveTracing": {}, "TestPulledBytesAccounting": {}},
-    ported=PORTED + ("obs", "sim"))
+    ported=PORTED + ("obs", "sim"),
+    reference={"repro.obs.bench": ("BenchTrajectory", "bench_path", "load_trajectory",
+                                   "validate_bench")})
 globals().update(_exports)
 del _exports
