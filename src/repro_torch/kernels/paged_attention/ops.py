@@ -81,26 +81,35 @@ def work(b: int, h: int, g: int, d: int, keys: int, per_seq: int, itemsize: int,
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
-                    return_lse: bool = False):
+                    return_lse: bool = False, out=None):
     """q [b, h, d]; k/v pages [b, per_seq, bs, g, d]; block_tables
     [b, per_seq] int32 (within-sequence page ids); context_lens [b] int32,
-    counting the current token -> [b, h, d] in q.dtype, and with
+    counting the current token -> [b, h, d] in q.dtype (written into
+    ``out`` when given: contiguous, q's shape, dtype and device), and with
     ``return_lse`` (out, lse [b, h] f32)."""
     _validate(q, k_pages, v_pages, block_tables, context_lens)
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype
+                            or out.device != q.device or not out.is_contiguous()):
+        raise ValueError(f"paged_attention: out must be a contiguous {tuple(q.shape)} "
+                         f"{q.dtype} tensor on {q.device}")
     if build.on_meta("paged_attention", q, k_pages, v_pages, block_tables, context_lens):
         # the contexts' values are not there: every page counts as full
         b, h, d = q.shape
         _, per_seq, bs, g, _ = k_pages.shape
         build.count_meta("paged_attention", *work(b, h, g, d, b * per_seq * bs, per_seq,
                                                   q.element_size(), lse=return_lse))
-        out = torch.empty_like(q)
+        out = torch.empty_like(q) if out is None else out
         if return_lse:
             return out, torch.empty((b, h), dtype=torch.float32, device=q.device)
         return out
     if not build.on_cuda("paged_attention", q, k_pages, v_pages, block_tables,
                          context_lens):
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
-                                   return_lse=return_lse)
+        got = paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
+                                  return_lse=return_lse)
+        if out is None:
+            return got
+        out.copy_(got[0] if return_lse else got)
+        return (out, got[1]) if return_lse else out
     tensors = (q, k_pages, v_pages, block_tables, context_lens)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: inputs must be contiguous")
@@ -108,12 +117,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     _, per_seq, bs, g, _ = k_pages.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"paged_attention: head_dim {d} not in {HEAD_DIMS}")
-    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
-        raise ValueError("paged_attention: q and pages must be 16-byte aligned")
+    out = torch.empty_like(q) if out is None else out
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, out)):
+        raise ValueError("paged_attention: q, pages and out must be 16-byte aligned")
     lib = build.library()
     build.check_design("paged_attention", DESIGN, lib)
     pages, n_part = partitions(b, g, h // g, per_seq, _sm_count(q.device.index))
-    out = torch.empty_like(q)
     lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     ml = acc = None
     if n_part > 1:  # the partials: (m, l) [b, h, n_part, 2], then acc [b, h, n_part, d]

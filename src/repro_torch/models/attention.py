@@ -24,7 +24,7 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.models import sharding
 
 __all__ = [
-    "rope", "gqa_attention", "paged_decode_attention", "write_token_kv",
+    "rope", "gqa_attention", "paged_decode_attention", "token_slots", "write_token_kv",
     "KVPages", "paged_decode_with_write",
 ]
 
@@ -63,32 +63,42 @@ class KVPages:
         return self.k_pages.shape[2]
 
 
-def write_token_kv(pages: KVPages, k_new, v_new, block_tables, context_lens) -> KVPages:
+def token_slots(block_tables, context_lens, block_size: int) -> torch.Tensor:
+    """Where each sequence's next token goes: its row in a layer's pages
+    [b, per_seq, block_size, ...] flattened over the first three dims,
+    int64 [b].  ``context_lens`` counts the tokens already present."""
+    b, per_seq = block_tables.shape
+    blk = torch.gather(block_tables.long(), 1, (context_lens // block_size).long()[:, None])[:, 0]
+    rows = torch.arange(b, device=block_tables.device)
+    return (rows * per_seq + blk) * block_size + (context_lens % block_size).long()
+
+
+def write_token_kv(pages: KVPages, k_new, v_new, block_tables, context_lens,
+                   slots=None) -> KVPages:
     """Scatter one new token's K/V ([b, g, d]) into each sequence's current
-    page, in place.  ``context_lens`` counts the tokens already present."""
-    b = k_new.shape[0]
-    bs = pages.block_size
-    blk_idx = (context_lens // bs).long()
-    blk = torch.gather(block_tables.long(), 1, blk_idx[:, None])[:, 0]
-    off = (context_lens % bs).long()
-    rows = torch.arange(b, device=k_new.device)
-    pages.k_pages[rows, blk, off] = k_new.to(pages.k_pages.dtype)
-    pages.v_pages[rows, blk, off] = v_new.to(pages.v_pages.dtype)
+    page, in place.  ``context_lens`` counts the tokens already present;
+    ``slots``: their ``token_slots``, when the caller has them."""
+    if slots is None:
+        slots = token_slots(block_tables, context_lens, pages.block_size)
+    for plane, new in ((pages.k_pages, k_new), (pages.v_pages, v_new)):
+        plane.view(-1, *plane.shape[3:]).index_copy_(0, slots, new.to(plane.dtype))
     return pages
 
 
 def paged_decode_attention(q, pages: KVPages, block_tables, context_lens, *,
-                           return_lse: bool = False):
+                           return_lse: bool = False, out=None):
     """One new token per sequence over its paged context; ``context_lens``
     counts the tokens INCLUDING the one just written.  Pages of another
     dtype than q (f32 compute over a bf16 cache) are promoted to q's, as
-    the reference's einsum promotes them."""
+    the reference's einsum promotes them.  ``out``: where to write the
+    output (the kernel's ``out``)."""
     k_pages, v_pages = pages.k_pages, pages.v_pages
     if k_pages.dtype != q.dtype:
         k_pages, v_pages = k_pages.to(q.dtype), v_pages.to(q.dtype)
     return paged_attention(q.contiguous(), k_pages, v_pages,
                            block_tables.to(torch.int32).contiguous(),
-                           context_lens.to(torch.int32).contiguous(), return_lse=return_lse)
+                           context_lens.to(torch.int32).contiguous(), return_lse=return_lse,
+                           out=out)
 
 
 def identity_slice(b: int, pages_per_rank: int, device) -> torch.Tensor:

@@ -26,7 +26,10 @@ Encoder-decoder configs take ``models.whisper.EncDecLM``.
 Decode steps update the state's KV pages and ring buffers IN PLACE (the
 new token is written into the current page or ring slot of every layer)
 and return a state that shares them; the reference returns fresh arrays
-instead.  SSM states are replaced, not updated.
+instead.  SSM states are replaced, not updated.  Over paged KV on one
+device a decode step runs as L + 1 pieces (``decode_piece``) with each
+layer's paged attention between two (``paged_attend``); ``decode_greedy``
+replays the pieces as CUDA graphs on the card (``models.decode_graph``).
 
 Under a device mesh (``models.sharding``; params from
 ``launch.shardings.shard_params``) every family computes on this rank's
@@ -65,8 +68,11 @@ import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import sharding
-from repro_torch.models.attention import KVPages, identity_slice, paged_decode_with_write, rope
+from repro_torch.models.attention import (
+    KVPages, identity_slice, paged_decode_attention, paged_decode_with_write, rope, token_slots,
+    write_token_kv)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode_graph import DecodeGraphs
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
     PARAM_DTYPE, column_input, dense, dense_init, embed, gelu_mlp, normal_, rmsnorm, row_dense,
@@ -75,8 +81,8 @@ from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.sharding import MeshLayout
 from repro_torch.models.ssm import ssm_prefill, ssm_state_shapes, ssm_step
 
-__all__ = ["DecoderLM", "DecodeState", "attend_whole", "heads", "kv_for", "paged_kv",
-           "place_pages", "sharded_nll", "stack_states"]
+__all__ = ["DecoderLM", "DecodeState", "attend_whole", "greedy_tokens", "heads", "kv_for",
+           "paged_kv", "place_pages", "sharded_nll", "stack_states"]
 
 
 @dataclasses.dataclass
@@ -115,6 +121,12 @@ def stack_states(states) -> DecodeState:
         else:  # [L, b, ...]
             out[f.name] = torch.cat(vals, dim=1)
     return DecodeState(**out)
+
+
+def greedy_tokens(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The greedy next tokens of logits [b, V] over the real vocabulary
+    (the padded columns left out), int32 [b]."""
+    return torch.argmax(logits[:, :vocab_size].float(), dim=-1).to(torch.int32)
 
 
 def paged_kv(k: torch.Tensor, v: torch.Tensor, block_size: int, margin: int):
@@ -263,6 +275,7 @@ class DecoderLM:
         self.n_steps = cfg.num_layers // self.group
         self.device = resolve_device(device)
         self._fsdp_plans: dict = {}   # (mesh shape, fold) -> fsdp_plan
+        self.decode_graphs = None     # models.decode_graph.DecodeGraphs of decode_greedy
 
     def _sub_kind(self, i: int) -> str:
         """FFN kind of sub-layer i within a group: MoE is the LAST of each
@@ -699,9 +712,7 @@ class DecoderLM:
         (paged archs); ring slots are written in place; returns (h, pages,
         (ssd, conv) or None)."""
         cfg = self.cfg
-        b, _ = h.shape
-        outs = {}
-        ssm_state = None
+        a = ssm_out = ssm_state = None
         if cfg.has_attention:
             q, k, v = self._attn_qkv(p, h, state.context_lens)
             if cfg.sliding_window:
@@ -710,16 +721,28 @@ class DecoderLM:
                                                      None))
             else:
                 a, pages = self._paged_attention(q, k, v, pages, state)
-            outs["attn"] = row_dense(p["attn"]["o"], a.reshape(b, -1), cfg.attn_dim)
         if cfg.has_ssm:
             hn = rmsnorm(p["ssm_norm"], h, cfg.norm_eps)
-            outs["ssm"], ssm_state = ssm_step(
+            ssm_out, ssm_state = ssm_step(
                 p["ssm"], hn, cfg, (state.ssd_state[layer], state.conv_state[layer]))
+        h = self._sub_decode_tail(p, h, a, ffn_kind, ssm_out,
+                                  state.layout.batch_axes if state.layout else ())
+        return h, pages, ssm_state
+
+    def _sub_decode_tail(self, p, h, a, ffn_kind: str, ssm_out=None, batch_axes=()):
+        """The rest of a decode layer after its token mixers: the ``o``
+        projection of the attention output ``a`` [b, heads, hd] (None
+        without attention), the mixers' sum into the residual, then the
+        FFN's."""
+        outs = {}
+        if a is not None:
+            outs["attn"] = row_dense(p["attn"]["o"], a.reshape(h.shape[0], -1), self.cfg.attn_dim)
+        if ssm_out is not None:
+            outs["ssm"] = ssm_out
         h = h + self._mix(p, outs)
         if ffn_kind != "none":
-            h = h + self._apply_ffn(p, h, ffn_kind,
-                                    state.layout.batch_axes if state.layout else ())[0]
-        return h, pages, ssm_state
+            h = h + self._apply_ffn(p, h, ffn_kind, batch_axes)[0]
+        return h
 
     def _ring_attention(self, q, k_new, v_new, state: DecodeState, layer: int):
         """Sliding-window decode over layer ``layer``'s ring (the new token
@@ -752,7 +775,18 @@ class DecoderLM:
     def decode_step(self, params, state: DecodeState, tokens):
         """One token for every sequence.  tokens: [b] -> (logits [b, V],
         new DecodeState sharing ``state``'s pages and rings, updated in
-        place, with fresh SSM states)."""
+        place, with fresh SSM states).  Paged KV on one device runs as the
+        pieces of ``decode_piece``, each paged attention between two."""
+        if self.paged_decode(state):
+            layers = list(self._sublayers(params))
+            attend, ctx = self.paged_attend(state)
+            x, q, k, v = self.decode_piece(params, layers, 0, tokens, None, state.context_lens)
+            for i in range(1, len(layers) + 1):
+                out = self.decode_piece(params, layers, i, x, attend(i - 1, q, k, v),
+                                        state.context_lens)
+                if i < len(layers):
+                    x, q, k, v = out
+            return out, dataclasses.replace(state, context_lens=ctx)
         cfg = self.cfg
         x = embed(params["embed"], self._tokens(tokens), cfg.padded_vocab)
         if state.layout is not None and state.layout.seq_parallel \
@@ -782,6 +816,74 @@ class DecoderLM:
             new.ssd_state, new.conv_state = torch.stack(ssd), torch.stack(conv)
         new.context_lens = state.context_lens + 1
         return logits, new
+
+    # ------------------------------------------- the decode step in pieces
+    def paged_decode(self, state: DecodeState) -> bool:
+        """Whether ``state``'s decode step runs as pieces cut at its paged
+        attention calls: paged KV (no ring, no SSM) on one device."""
+        cfg = self.cfg
+        return (cfg.has_attention and not cfg.sliding_window and not cfg.has_ssm
+                and state.k_pages is not None and state.layout is None
+                and sharding.get_mesh() is None)
+
+    def decode_piece(self, params, layers, i: int, x, a, pos, *, greedy: bool = False):
+        """Piece ``i`` (0 <= i <= L) of a paged decode step: the forward
+        between two of its paged attention calls.  ``layers``:
+        ``list(self._sublayers(params))``; ``pos``: the context lengths
+        before the step [b].
+
+        * 0: ``x`` the tokens [b]; the embedding, then layer 0's attention
+          norm, q, k, v and RoPE -> (x, q, k, v);
+        * 0 < i < L: ``x`` the residual, ``a`` layer i-1's attention output
+          [b, heads, hd]; layer i-1's ``o`` projection, residual and FFN,
+          then layer i's q, k, v -> (x, q, k, v);
+        * L: the last layer's tail, the final norm and the logits -> logits,
+          or with ``greedy`` (logits, ``greedy_tokens`` of them).
+
+        Every row is computed from its own inputs alone, but for MoE, whose
+        rows share a group (``models.moe``)."""
+        cfg = self.cfg
+        if i == 0:
+            x = embed(params["embed"], self._tokens(x), cfg.padded_vocab)
+        else:
+            _, p, kind = layers[i - 1]
+            x = self._sub_decode_tail(p, x, a, kind)
+        if i < len(layers):
+            return (x, *self._attn_qkv(layers[i][1], x, pos))
+        logits = self._logits(params, rmsnorm(params["final_norm"], x, cfg.norm_eps))
+        return (logits, greedy_tokens(logits, cfg.vocab_size)) if greedy else logits
+
+    def paged_attend(self, state: DecodeState):
+        """A step's paged attention between its pieces -> (``attend(layer,
+        q, k, v, out=None)``, the context after the step).  ``attend``
+        writes the new token's K/V into the layer's pages and runs the
+        paged_attention kernel over them (into ``out`` when given).  The
+        token slots are found once a step, and every layer's kernel gets the
+        same context tensor (``context_lens + 1``, made here and never
+        written)."""
+        slots = token_slots(state.block_tables, state.context_lens, self.BLOCK_SIZE)
+        ctx = state.context_lens + 1
+        pages = [KVPages(k, v) for k, v in zip(state.k_pages.unbind(0), state.v_pages.unbind(0))]
+
+        def attend(layer, q, k, v, out=None):
+            write_token_kv(pages[layer], k, v, state.block_tables, state.context_lens, slots)
+            return paged_decode_attention(q, pages[layer], state.block_tables, ctx, out=out)
+        return attend, ctx
+
+    def decode_greedy(self, params, state: DecodeState, tokens, argmax):
+        """One decode step to its greedy tokens -> (tokens int32 [b], the
+        new state, how the forward ran: ``"replay"`` or ``"capture"`` (CUDA
+        graphs of the pieces, ``models.decode_graph``, on the card) or
+        ``"eager"`` (``decode_step``, then ``argmax(logits)``)).  The graphs
+        engage where ``DecodeGraphs.engages`` says: paged KV on one device,
+        at most 32 sequences."""
+        graphs = self.decode_graphs
+        if self.device.type == "cuda" and (graphs is None or graphs.params is not params):
+            graphs = self.decode_graphs = DecodeGraphs(self, params)
+        if graphs is not None and graphs.params is params and graphs.engages(state):
+            return graphs.step(state, tokens)
+        logits, new = self.decode_step(params, state, tokens)
+        return argmax(logits), new, "eager"
 
     def decode_step_layerwise(self, params, state: DecodeState, tokens, fetch_layer):
         """One decode step where layer ``l``'s KV pages come from

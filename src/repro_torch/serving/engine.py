@@ -20,9 +20,11 @@ check a site): a prefill records ``prefill.forward`` (the model and the
 first token's argmax), ``prefill.park``, ``prefill.digest`` and, with
 ``quantize_transfer``, ``prefill.quant`` on the prefill worker's track;
 a decode step records ``step.pump``, ``step.rebuild``, ``step.launch``
-(the host issuing the forward and the argmax) and ``step.sync`` (the
-host waiting for the step's tokens) on the decode worker's track, inside
-the serving loop's ``tick.step``.  The parts of a step do not overlap.
+(the host issuing the forward and the argmax; ``graph``: ``"replay"`` or
+``"capture"`` where the forward ran as CUDA graphs, else ``"eager"``, see
+``DecoderLM.decode_greedy``) and ``step.sync`` (the host waiting for the
+step's tokens) on the decode worker's track, inside the serving loop's
+``tick.step``.  The parts of a step do not overlap.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 from repro_torch.core.connection import Connection, DescriptorRegistry, WorkerInfo
 from repro_torch.core.pull_push import pull_kv_async
 from repro_torch.core.transfer_engine import ConnectionTornError, TransferEngine, TransferFuture
-from repro_torch.models.transformer import DecodeState
+from repro_torch.models.transformer import DecodeState, greedy_tokens
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.blocks import BlockPool, OutOfBlocks
 from repro_torch.serving.kv_cache import PagedKVCache
@@ -571,9 +573,7 @@ class DecodeWorker:
         )
 
     def _argmax_tokens(self, logits) -> torch.Tensor:
-        return torch.argmax(
-            logits[:, : self.model.cfg.vocab_size].float(), dim=-1
-        ).to(torch.int32)
+        return greedy_tokens(logits, self.model.cfg.vocab_size)
 
     # ----------------------------------------- layerwise first step
     def _layerwise_first_step(self, streaming: list[_InFlight],
@@ -620,7 +620,7 @@ class DecodeWorker:
             return k, v
 
         tr = self.tracer
-        with tr.span("step.launch", track=self._track, batch=b):
+        with tr.span("step.launch", track=self._track, batch=b, graph="eager"):
             # the layers' fetches pump the engine inside the forward
             state = DecodeState(
                 context_lens=self._context_lens(batch),
@@ -777,10 +777,10 @@ class DecodeWorker:
                           bytes=_nbytes(state.k_pages, state.v_pages)
                           + sum(_nbytes(r.k_cached, r.v_cached) for r in batch))
         batch = [self.resident[rid] for rid in self._step_ids]
-        with self.tracer.span("step.launch", track=self._track, batch=len(batch)):
-            logits, state = self.model.decode_step(
-                self.params, self._step_state, self._step_tokens)
-            tokens = self._argmax_tokens(logits)
+        with self.tracer.span("step.launch", track=self._track, batch=len(batch)) as s:
+            tokens, state, how = self.model.decode_greedy(
+                self.params, self._step_state, self._step_tokens, self._argmax_tokens)
+            s.set(graph=how)
         if self.inflight:
             self._step_pump(pump_budget)  # transfer hides behind the step
         out = self._commit_step(batch, state, tokens)

@@ -783,3 +783,118 @@ def test_flash_prefill_rank_local_shapes(gen, s, t, h, g, d, causal):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
     assert rel_norm(out, ref) < REL_NORM_BF16
+
+
+def _graph_model(arch):
+    """``arch`` at its published widths, cut to 2 layers (granite at
+    capacity_factor E / k, as served), with its weights on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    if cfg.num_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    model = DecoderLM(cfg, device="cuda")
+    return model, model.init_params(seed=0)
+
+
+def _joined(state, extra):
+    """``state``'s sequences, then ``extra``'s, in new page tensors (the
+    worker's rebuild on a join)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        state, context_lens=torch.cat([state.context_lens, extra.context_lens]),
+        k_pages=torch.cat([state.k_pages, extra.k_pages], dim=1),
+        v_pages=torch.cat([state.v_pages, extra.v_pages], dim=1),
+        block_tables=torch.cat([state.block_tables, extra.block_tables]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-9b", "granite-moe-3b-a800m"])
+def test_decode_graphs_replay_the_eager_step(gen, arch):
+    """32 steps of 3 sequences, 2 more joining after 16 (the state rebuilt,
+    3 -> 5: buckets 4 and 8): the captured replays, every bucket captured
+    at the first step, give the tokens of ``decode_step`` on the unpadded
+    batch; the pages they write agree."""
+    import dataclasses
+
+    from repro_torch.models.decode_graph import DecodeGraphs
+    from repro_torch.models.transformer import greedy_tokens
+
+    model, params = _graph_model(arch)
+    vocab = model.cfg.vocab_size
+    prompts = torch.randint(0, vocab, (5, 70), generator=gen, device="cuda")
+    logits, state = model.prefill(params, {"tokens": prompts}, max_blocks_margin=2)
+    first = greedy_tokens(logits, vocab)
+
+    def rows(lo, hi):
+        return dataclasses.replace(
+            state, context_lens=state.context_lens[lo:hi].clone(),
+            k_pages=state.k_pages[:, lo:hi].clone(), v_pages=state.v_pages[:, lo:hi].clone(),
+            block_tables=state.block_tables[lo:hi].clone())
+
+    def run(step):
+        st, tok, out = rows(0, 3), first[:3], []
+        for i in range(32):
+            if i == 16:
+                st, tok = _joined(st, rows(3, 5)), torch.cat([tok, first[3:]])
+            tok, st = step(st, tok)
+            out.append(tok.tolist())
+        return out, st
+
+    graphs, modes = DecodeGraphs(model, params), []
+
+    def replayed(st, tok):
+        tok, st, mode = graphs.step(st, tok)
+        modes.append(mode)
+        return tok, st
+
+    def eager(st, tok):
+        lg, st = model.decode_step(params, st, tok)
+        return greedy_tokens(lg, vocab), st
+
+    got, st_g = run(replayed)
+    want, st_e = run(eager)
+    torch.cuda.synchronize()
+    assert modes == ["capture"] + ["replay"] * 31
+    assert got == want
+    torch.testing.assert_close(st_g.k_pages.float(), st_e.k_pages.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_decode_graph_kernels_reach_the_profiler(gen):
+    """A replayed step's kernels appear in ``torch.profiler``'s CUDA events,
+    every kernel the eager ``decode_step`` launches at the same batch among
+    them: the device's idle share reads a replayed step as it reads an
+    eager one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.decode_graph import DecodeGraphs
+    from repro_torch.models.transformer import greedy_tokens
+
+    model, params = _graph_model("yi-9b")
+    vocab = model.cfg.vocab_size
+    prompts = torch.randint(0, vocab, (4, 40), generator=gen, device="cuda")
+    logits, state = model.prefill(params, {"tokens": prompts}, max_blocks_margin=2)
+    tok = greedy_tokens(logits, vocab)
+    graphs = DecodeGraphs(model, params)
+
+    def kernels(step):
+        step()                                  # the capture, outside the profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+
+    replayed = kernels(lambda: graphs.step(state, tok))
+    eager = kernels(lambda: greedy_tokens(model.decode_step(params, state, tok)[0], vocab))
+    names = {e.name for e in replayed}
+    assert any("paged_attention" in n for n in names)
+    assert {e.name for e in eager} <= names
+    assert len(replayed) >= len(eager)
+    assert sum(e.device_time_total for e in replayed) > 0
