@@ -4,7 +4,8 @@ driven by an open-loop arrival schedule.
 Everything that belongs to one configuration, traffic mix, cell or metric is
 a file of its own, found by the name ``BENCHMARK.json`` gives it:
 
-- ``configs/<config>.json``: the model configuration as run;
+- ``configs/<config>.json``: the model configuration as run, with its CPU
+  test size and limits (``test``);
 - ``traffic/<mix>.json``: the parameters the one generator (``traffic.py``)
   reads;
 - ``cells/<workload>.json``: the cell's offered rate, lead, slabs, latency

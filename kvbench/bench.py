@@ -45,14 +45,21 @@ def _applies(metric: dict, workload: str, reported: set[str] | None = None) -> b
     return reported is None or metric["moves"] in reported
 
 
+def load_config(name: str, root: pathlib.Path = ROOT, bench: dict | None = None) -> dict:
+    """The file of ``BENCHMARK.json``'s configuration ``name``."""
+    bench = load_benchmark(root) if bench is None else bench
+    cfgs = {c["name"]: c for c in bench["configs"]}
+    if name not in cfgs:
+        raise KeyError(f"no configuration {name!r} in BENCHMARK.json; known: {sorted(cfgs)}")
+    return json.loads((root / cfgs[name]["file"]).read_text())
+
+
 def load_cell(name: str, root: pathlib.Path = ROOT, bench: dict | None = None) -> Cell:
     bench = load_benchmark(root) if bench is None else bench
     wl = {w["name"]: w for w in bench["workloads"]}
     if name not in wl:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json; known: {sorted(wl)}")
     w = wl[name]
-    cfgs = {c["name"]: c for c in bench["configs"]}
-    cfg_entry = cfgs[w["config"]]
     e2e = [m for m in bench["end_to_end"] if _applies(m, name)]
     reported = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"] if _applies(m, name, reported)]
@@ -60,7 +67,7 @@ def load_cell(name: str, root: pathlib.Path = ROOT, bench: dict | None = None) -
     return Cell(
         name=name, chips=int(w["chips"]), config_name=w["config"],
         traffic_name=w["traffic"],
-        config=json.loads((root / cfg_entry["file"]).read_text()),
+        config=load_config(w["config"], root, bench),
         traffic=json.loads((kv / "traffic" / f"{w['traffic']}.json").read_text()),
         cell=json.loads((kv / "cells" / f"{name}.json").read_text()),
         end_to_end=e2e, per_layer=layer, root=root)

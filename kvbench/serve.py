@@ -20,7 +20,8 @@ from kvbench.correct import gaps, sample
 from kvbench.records import Req, Run
 from kvbench.weights import make_weights
 
-__all__ = ["ProgramMissing", "import_program", "Program", "drive", "run_cell"]
+__all__ = ["ProgramMissing", "import_program", "run_dims", "program_config", "cpu_config",
+           "Program", "drive", "run_cell"]
 
 CLOCK = time.perf_counter
 # A traced run profiles the last this many seconds of its window, the
@@ -28,10 +29,14 @@ CLOCK = time.perf_counter
 # do, reading the slice's events stays short, and the profiler stops only
 # after the drain (stopping it holds the host for seconds).
 PROFILE_SLICE_S = 8.0
-# the ModelConfig fields the configuration file's "run" block states
+# the ModelConfig fields every configuration file's "run" block states; a
+# block may state more, and the program is held to each of them too
 RUN_FIELDS = ("num_layers", "d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
               "vocab_size", "num_experts", "experts_per_token", "norm_eps", "rope_theta",
               "capacity_factor", "tie_embeddings", "family")
+# the keys of a "run" block that say how the program is built, not what it runs
+_RUN_BUILD = ("arch", "overrides")
+_ABSENT = "(no such field)"
 
 
 class ProgramMissing(RuntimeError):
@@ -47,6 +52,60 @@ def import_program(root=ROOT) -> None:
         sys.path.insert(0, str(src))
 
 
+def _as_json(v):
+    """A configuration value as JSON states it: tuples as lists."""
+    return [_as_json(x) for x in v] if isinstance(v, (tuple, list)) else v
+
+
+def _as_config(v):
+    """A JSON value as a ModelConfig field holds it: lists as tuples."""
+    return tuple(_as_config(x) for x in v) if isinstance(v, list) else v
+
+
+def _run_keys(run: dict) -> list[str]:
+    """The ModelConfig fields a ``run`` block states: ``RUN_FIELDS``, which
+    it must, and any other key but ``arch`` and ``overrides``."""
+    missing = [k for k in RUN_FIELDS if k not in run]
+    if missing:
+        raise ValueError(f"the run block does not state {missing}")
+    return [k for k in run if k not in _RUN_BUILD]
+
+
+def run_dims(run: dict, model_cfg) -> dict:
+    """What the metrics and the reference read (``Program.m``): each field
+    the ``run`` block states, valued as ``model_cfg`` holds it."""
+    keys = _run_keys(run)
+    unknown = [k for k in keys if not hasattr(model_cfg, k)]
+    if unknown:
+        raise ValueError(f"the run block states {unknown}, which are no fields of "
+                         f"{type(model_cfg).__name__}")
+    return {k: getattr(model_cfg, k) for k in keys}
+
+
+def program_config(config: dict):
+    """The program's ``ModelConfig`` for a configuration file: its ``run``
+    block's ``arch`` with its ``overrides``, held to every field the block
+    states (JSON lists against tuples); raises where one differs."""
+    from repro_torch.configs import get_config
+
+    run = config["run"]
+    model_cfg = dataclasses.replace(get_config(run["arch"]), **run.get("overrides", {}))
+    differ = {k: (run[k], _as_json(getattr(model_cfg, k, _ABSENT))) for k in _run_keys(run)
+              if run[k] != _as_json(getattr(model_cfg, k, _ABSENT))}
+    if differ:
+        raise ValueError(f"{run['arch']}: the program's configuration differs from the "
+                         f"file's (file, program): {differ}")
+    return model_cfg
+
+
+def cpu_config(config: dict):
+    """The configuration file's CPU test size (its ``test`` block's
+    ``size``, ``ModelConfig`` keywords) as a ``ModelConfig``."""
+    from repro_torch.models.config import ModelConfig
+
+    return ModelConfig(**{k: _as_config(v) for k, v in config["test"]["size"].items()})
+
+
 @dataclasses.dataclass
 class Program:
     """The model and its weights on the device, and how to serve them."""
@@ -54,28 +113,22 @@ class Program:
     cell: Cell
     model: object
     weights: dict
-    m: dict          # the dims the metrics and the reference read
+    m: dict          # run_dims: what the metrics and the reference read
     device: object
 
     @classmethod
     def build(cls, cell: Cell, *, seed: int, device, model_cfg=None, dtype=None) -> "Program":
-        """The port's model at the configuration file's ``run`` block (or at
-        ``model_cfg``, for tests at small widths), weights from ``seed``."""
-        from repro_torch.configs import get_config
+        """The port's model at the configuration file's ``run`` block
+        (``program_config``; or at ``model_cfg``, for tests at small widths),
+        weights from ``seed``."""
         from repro_torch.models.transformer import DecoderLM
 
-        run = cell.config["run"]
         if model_cfg is None:
-            model_cfg = dataclasses.replace(get_config(run["arch"]), **run.get("overrides", {}))
-            differ = {k: (run[k], getattr(model_cfg, k)) for k in RUN_FIELDS
-                      if run[k] != getattr(model_cfg, k)}
-            if differ:
-                raise ValueError(f"{cell.config_name}: the program's configuration differs "
-                                 f"from the file's (file, program): {differ}")
+            model_cfg = program_config(cell.config)
+        m = run_dims(cell.config["run"], model_cfg)
         model = DecoderLM(model_cfg, device=device)
         weights = make_weights(model.param_shapes(), seed=seed, device=model.device,
                                d_model=model_cfg.d_model, dtype=dtype)
-        m = {k: getattr(model_cfg, k) for k in RUN_FIELDS}
         return cls(cell, model, weights, m, model.device)
 
     def service(self, tracer=None):

@@ -1,6 +1,13 @@
-"""CPU tests of the readers of the program's spans inside a decode step, a
-prefill and a KV pull: each against arithmetic done by hand on a run built
-here, and each silent on a run whose program records none of these spans."""
+"""Tests of what the traced run reads.  On the CPU: the readers of the
+program's spans inside a decode step, a prefill and a KV pull, and
+``step_graph_pct``, each against arithmetic done by hand on a run built
+here and each silent on a run whose program records none of these spans;
+the decomposition; and the launch log that ``paged_attention_roofline``
+reads, on the program's decode step in pieces.  On the card (marked
+``cuda``, skipped without one) that launch log under CUDA-graph replay:
+
+    python -m pytest -q -m cuda kvbench/test_kvbench_tracing.py
+"""
 from __future__ import annotations
 
 from types import SimpleNamespace
@@ -238,3 +245,125 @@ def test_capture_around_a_traced_cpu_run():
     assert 0.95 <= d["prefill"]["covered"] <= 1.0
     assert d["clock"] is None  # no profiled slice on the CPU
     assert d["spans_per_s"]["inner"] > 0 and len(d["gc"]["collections"]) == 3
+
+
+# ------------------------------------------------------------ step_graph_pct
+def graph_steps(*modes, after="replay"):
+    """One step a second from 11 s, its ``step.launch`` marked with each of
+    ``modes`` in turn (None: no ``graph`` attribute), and a step after the
+    close marked ``after``."""
+    spans = []
+    for i, mode in enumerate((*modes, after)):
+        st = step(11.0 + i if i < len(modes) else 19.95, 0.05, 0.002)
+        if mode is not None:
+            st[1].attrs["graph"] = mode
+        spans += st
+    return run_of(spans)
+
+
+@pytest.mark.parametrize("modes,want", [
+    (("replay", "replay", "replay"), 100.0),
+    (("capture", "replay", "eager", "replay"), 50.0),
+    (("eager", "eager"), 0.0),
+    (("capture", None), 0.0),
+])
+def test_step_graph_pct_counts_the_replayed_steps_in_the_window(modes, want):
+    assert metric_reader("step_graph_pct").read(graph_steps(*modes)) == pytest.approx(want)
+
+
+def test_step_graph_pct_reads_nothing_without_the_attribute():
+    assert metric_reader("step_graph_pct").read(graph_steps(None, None, after=None)) is None
+    parent = [span("tick.step", W, 11.0, 11.1, batch=1, tokens=1),
+              span("step.launch", W, 11.0, 11.05, batch=1)]
+    assert metric_reader("step_graph_pct").read(run_of(parent, [request("r1", 12.0, 70)])) \
+        is None
+    assert metric_reader("step_graph_pct").read(run_of([])) is None
+
+
+# ------------------------------------------------- the launch log, per step
+def _launches_per_step(cell_name, device):
+    """The cell's configuration at its test size served on ``device`` with
+    a tracer: one request to warm up (on the card its first step captures
+    the graphs), then three of different lengths, which leave the decode
+    batch one by one, with ``profiling.LaunchLog`` on.  Returns the number of
+    layers, the decode steps' ``step.launch`` spans in order, and the
+    paged_attention launches the log recorded."""
+    import time
+
+    import numpy as np
+
+    from kvbench.bench import load_cell
+    from kvbench.profiling import LaunchLog
+    from kvbench.serve import Program, cpu_config, import_program
+
+    import_program()
+    from repro_torch.obs.trace import Tracer
+
+    cell = load_cell(cell_name)
+    size = cpu_config(cell.config)
+    prog = Program.build(cell, seed=2147483907, device=device, model_cfg=size)
+    tracer = Tracer(clock=time.perf_counter)
+    svc = prog.service(tracer)
+    rng = np.random.default_rng(2147483911)
+
+    def serve(*requests):
+        for n, out in requests:
+            svc.submit(rng.integers(0, size.vocab_size, n, dtype=np.int64), max_new=out,
+                       dispatch="queued")
+        svc.loop.run_until_idle()
+        prog.sync()
+
+    serve((40, 3))
+    tracer.clear()
+    log = LaunchLog()
+    log.install()
+    log.on = True
+    try:
+        serve((33, 4), (70, 9), (150, 14))
+    finally:
+        log.on = False
+        log.uninstall()
+    steps = sorted((s for s in tracer.spans if s.name == "step.launch"), key=lambda s: s.t0)
+    return size.num_layers, steps, log.settle()["paged_attention"]
+
+
+def _one_launch_a_layer_a_step(layers, steps, calls):
+    assert steps and len(calls) == layers * len(steps)
+    assert [c["b"] for c in calls] == [s.attrs["batch"] for s in steps for _ in range(layers)]
+    assert len({s.attrs["batch"] for s in steps}) > 1      # the batch changed
+    for i in range(len(steps)):                            # one context tensor a step
+        assert len({c["keys"] for c in calls[i * layers:(i + 1) * layers]}) == 1
+
+
+@pytest.mark.parametrize("cell", ["yi9b.chat", "granite-moe.chat"])
+def test_the_launch_log_sees_one_paged_attention_a_layer_a_step(cell):
+    """On the CPU the decode step runs as its pieces, paged attention
+    between them, as the card's replay does: the log records each layer's
+    launch of each step, with the step's batch."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        layers, steps, calls = _launches_per_step(cell, "cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert {s.attrs["graph"] for s in steps} == {"eager"}
+    _one_launch_a_layer_a_step(layers, steps, calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["yi9b.chat", "granite-moe.chat"])
+def test_the_launch_log_sees_one_paged_attention_a_layer_a_replayed_step(cell):
+    """On the card, where the pieces replay as CUDA graphs and paged
+    attention runs eagerly between them: every step after the capture is
+    a replay, and the log still records each layer's launch of each step
+    (what ``paged_attention_roofline`` divides by the kernel's device
+    time)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the graphs and the kernels run on the card only)")
+    layers, steps, calls = _launches_per_step(cell, "cuda")
+    assert {s.attrs["graph"] for s in steps} == {"replay"}
+    _one_launch_a_layer_a_step(layers, steps, calls)
