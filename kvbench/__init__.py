@@ -11,7 +11,9 @@ a file of its own, found by the name ``BENCHMARK.json`` gives it:
 - ``cells/<workload>.json``: the cell's offered rate, lead, slabs, latency
   limits and correctness limit;
 - ``metrics/<metric>.py``: one metric's reader (``read(run) -> float | None``);
-- ``reference/<name>.py``: a plain float32 PyTorch decoder.
+- ``reference/<name>.py``: a plain float32 PyTorch decoder, with, where the
+  harness's defaults do not hold for its configuration, its own
+  ``weight_rule`` and FLOP counts (``weights.py``, ``flops.py``).
 
 Run one cell with ``python3 kvbench/run.py --workload <name> --seed <n>
 --seconds <s> --trace <0|1>``.

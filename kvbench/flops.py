@@ -1,8 +1,14 @@
 """Model FLOPs of the served work, from a configuration's ``run`` block
-(the arithmetic behind the MFU metrics: 2 operations a multiply-add)."""
+(the arithmetic behind the MFU metrics: 2 operations a multiply-add).
+
+The formulas here hold for a stack of one kind of layer: attention and a
+SwiGLU or routed experts in every layer.  A configuration's reference
+module may define ``prefill_flops(m, prompt)`` and
+``decode_token_flops(m, keys)`` beside its equations; the readers take
+those for its cells (``for_run``)."""
 from __future__ import annotations
 
-__all__ = ["layer_params", "prefill_flops", "decode_token_flops"]
+__all__ = ["layer_params", "prefill_flops", "decode_token_flops", "for_run"]
 
 
 def layer_params(m: dict) -> int:
@@ -35,3 +41,11 @@ def decode_token_flops(m: dict, keys: int) -> int:
     included), with its logits."""
     return (2 * (layer_params(m) + m["d_model"] * m["vocab_size"])
             + _attention(m, keys))
+
+
+def for_run(run) -> tuple:
+    """``(prefill_flops, decode_token_flops)`` of the run's configuration:
+    each its reference module's (``run.reference``) where it defines one,
+    else this module's."""
+    return (getattr(run.reference, "prefill_flops", prefill_flops),
+            getattr(run.reference, "decode_token_flops", decode_token_flops))

@@ -1,11 +1,12 @@
 """Model FLOPs of the prefills of the requests due inside the window
-(``kvbench.flops.prefill_flops``) over their summed ``prefill`` phase time
-at the card's bf16 peak, in percent."""
-from kvbench.flops import prefill_flops
+(the configuration's count, ``kvbench.flops.for_run``) over their summed
+``prefill`` phase time at the card's bf16 peak, in percent."""
+from kvbench.flops import for_run
 from kvbench.records import PEAKS
 
 
 def read(run):
+    prefill_flops, _ = for_run(run)
     lc = run.lifecycle()
     flops = secs = 0
     for r in run.due_in_window():

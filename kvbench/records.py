@@ -64,6 +64,7 @@ class Run:
     model: dict               # the configuration file's "run" block
     spans: list | None = None     # the program's tracer spans (traced run)
     profile: Profile | None = None
+    reference: object = None      # the configuration's reference module (its FLOP counts)
 
     @property
     def window_s(self) -> float:

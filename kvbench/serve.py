@@ -11,6 +11,7 @@ import dataclasses
 import gc
 import sys
 import time
+from types import ModuleType
 
 import numpy as np
 
@@ -115,21 +116,25 @@ class Program:
     weights: dict
     m: dict          # run_dims: what the metrics and the reference read
     device: object
+    reference: ModuleType  # the configuration's plain reference
 
     @classmethod
     def build(cls, cell: Cell, *, seed: int, device, model_cfg=None, dtype=None) -> "Program":
         """The port's model at the configuration file's ``run`` block
         (``program_config``; or at ``model_cfg``, for tests at small widths),
-        weights from ``seed``."""
+        weights from ``seed`` (the reference's ``weight_rule`` first, where
+        it defines one)."""
         from repro_torch.models.transformer import DecoderLM
 
         if model_cfg is None:
             model_cfg = program_config(cell.config)
         m = run_dims(cell.config["run"], model_cfg)
+        ref = reference_module(cell.config["reference"], cell.root)
         model = DecoderLM(model_cfg, device=device)
         weights = make_weights(model.param_shapes(), seed=seed, device=model.device,
-                               d_model=model_cfg.d_model, dtype=dtype)
-        return cls(cell, model, weights, m, model.device)
+                               d_model=model_cfg.d_model, dtype=dtype,
+                               rule=getattr(ref, "weight_rule", None))
+        return cls(cell, model, weights, m, model.device, ref)
 
     def service(self, tracer=None):
         from repro_torch.serving.disagg import DisaggService
@@ -277,7 +282,8 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, t_start: flo
     profile = slice_.result() if slice_ is not None and slice_.t1 is not None else None
     spans = list(tracer.spans) if trace else None
     del subs, svc
-    run = Run(cell.name, w0, w1, deadline, setup_s, reqs, prog.m, spans, profile)
+    run = Run(cell.name, w0, w1, deadline, setup_s, reqs, prog.m, spans, profile,
+              prog.reference)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = metric_reader(m["name"], cell.root).read(run)
@@ -306,9 +312,8 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, t_start: flo
         torch.cuda.empty_cache()
     picked = sample(reqs, seed, int(cc["correct"]["sample_tokens"]))
     limits = cc["correct"]["limits"]
-    ref = reference_module(cell.config["reference"], cell.root)
     t_ref = CLOCK()
-    g = gaps(ref, prog.weights, prog.m, picked, prog.device, control=control) \
+    g = gaps(prog.reference, prog.weights, prog.m, picked, prog.device, control=control) \
         if picked else {"served": None}
     log(f"reference: {len(picked)} finished requests, "
         f"{g['served']['positions'] if picked else 0} served tokens, {CLOCK() - t_ref:.2f} s")

@@ -247,6 +247,30 @@ def test_each_cell_reports_setup_another_metric_and_a_layer_metric(cell):
         assert m["moves"] in names, (cell, m["name"])
 
 
+# The per-layer metrics each first cell reports, in the result line's order.
+FIRST_PER_LAYER = ["ttft_p95_s", "tbt_p95_s", "queue_ms_mean", "prefill_ms_per_ktok",
+                   "decode_step_ms", "handoff_ms_mean", "kv_pull_roofline", "prefill_mfu",
+                   "decode_mfu", "flash_prefill_roofline", "paged_attention_roofline",
+                   "device_idle_pct", "step_launch_ms", "step_sync_ms", "step_rebuild_ms",
+                   "step_pump_ms", "pull_ms_mean", "prefill_digest_ms_per_ktok",
+                   "step_launch_idle_pct", "step_graph_pct"]
+
+
+@pytest.mark.parametrize("cell,extra", [("yi9b.chat", []),
+                                        ("granite-moe.chat", ["gap_p50_s"])])
+def test_the_first_cells_report_the_same_per_layer_metrics(cell, extra):
+    """Of the per-layer metrics the two first cells had, all but
+    ``gap_p50_s`` apply without a ``workloads`` list, to each cell that
+    reports what it moves; the two cells report the same ones as when each
+    listed them (metrics added since may come after them)."""
+    known = FIRST_PER_LAYER + ["gap_p50_s"]
+    names = [m["name"] for m in load_cell(cell).per_layer if m["name"] in known]
+    assert names == FIRST_PER_LAYER[:2] + extra + FIRST_PER_LAYER[2:]
+    listed = {m["name"]: m["workloads"] for m in BENCH["per_layer"]
+              if "workloads" in m and m["name"] in known}
+    assert listed == {"gap_p50_s": ["granite-moe.chat"]}
+
+
 # ----------------------------------------------------------- found by name
 @pytest.mark.parametrize("cell", CELLS)
 def test_each_cells_files_are_found_by_name(cell):
@@ -277,7 +301,8 @@ def test_new_traffic_cell_and_metric_files_are_taken_without_an_edit(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     cell = load_cell("yi9b.bursty", tmp_path)
     assert cell.traffic["prompt"]["max"] == 128
-    assert [m["name"] for m in cell.per_layer] == ["requests_done"]
+    assert [m["name"] for m in cell.per_layer] == [
+        m["name"] for m in bench["per_layer"] if "workloads" not in m] + ["requests_done"]
     arr = traffic.schedule(cell.traffic, rate=4.0, segments=(10,), seed=1, vocab=10)
     assert arr and max(len(a.prompt) for a in arr) <= 128
     assert metric_reader("requests_done", tmp_path).read(_run(_steady())) == 60.0
