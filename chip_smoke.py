@@ -35,7 +35,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    Function (the kernel forward, the plain-torch backward) against autograd
    through the plain version: y and the state to 1e-3, the six gradients to
    1e-4 in ||err|| / ||ref||, at mamba2-780m's training shape (2 x 4096), a
-   ragged mamba2 length, hymba-1.5b's widths and the decay extremes.
+   ragged mamba2 length, hymba-1.5b's widths and the decay extremes.  The
+   layer kernels (rmsnorm with and without its residual add, rope of q and
+   k, silu_mul) within one bf16 place of their plain versions at the
+   cells' widths, decode and prefill rows and widths off the 16-byte grid.
    paged_attention's lse output (``return_lse``) against the plain
    version: one partition and several, contexts of 0 (out 0, lse -inf,
    no NaN) and phase 14's rank-local slice at Yi widths, f32 and bf16.
@@ -78,7 +81,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    just before it and read just after, and the run fails unless each
    kernel it must use launched (flash_prefill and ssd_scan once per
    layer and prompt, paged_attention once per layer and decode step) and
-   no other did.
+   no other did.  The layer kernels (rmsnorm, add_rmsnorm, rope,
+   silu_mul) are held to exact counts in the Yi-9B and granite serving
+   runs of phases 3, 3b, 4 and 8 (each prompt's prefill, and the warm-up
+   and capture of every decode piece of each batch size captured; a
+   replay launches nothing from Python), to zero in phase 15's training
+   steps (training takes their plain versions), and logged elsewhere.
 8. granite-moe-3b-a800m at full width (32 layers, d_model 1536, 40
    experts top-8 padded to 48) served as Yi-9B in phases 3-4: launch.serve
    plain and quantized, then the DisaggService on 96/130/257 tokens, its
@@ -195,7 +203,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    bit-equal) and each kernel they use launched.
 5. Times at the main paths' shapes: each kernel, its plain version, one
    PyTorch library call computing the same function (none computes the
-   SSD scan), and the bound; for ssd_scan also each of its launches'
+   SSD scan), and the bound (the layer kernels' rows beside the others,
+   their plain versions also timed inside a CUDA graph); for ssd_scan also each of its launches'
    device time (torch.profiler); and rows at whisper's decode, encoder and
    decode cross-attention and llava's 2976-token prefill; flash_prefill's
    forward with lse at Yi-9B s = 2048 (beside the call without it) and the
@@ -1000,6 +1009,67 @@ def ssd_inputs(gen, dev, b, s, nh, hd, ns, dtype=None, dt_fill=None, a=None):
     return x, dt, a, B, C, d_skip
 
 
+def ulps(out, ref) -> float:
+    """The largest distance of ``out`` from ``ref`` in units of the output
+    dtype's last place (at the larger magnitude of the two)."""
+    import torch
+
+    o, r = out.double(), ref.double()
+    mag = torch.maximum(o.abs(), r.abs()).clamp_min(torch.finfo(out.dtype).tiny)
+    ulp = torch.finfo(out.dtype).eps * torch.exp2(torch.floor(torch.log2(mag)))
+    return float(((o - r).abs() / ulp).max()) if out.numel() else 0.0
+
+
+def check_layer_kernels(gen, dev):
+    """rmsnorm (and its residual add), rope and silu_mul against their plain
+    versions at the cells' widths, decode and prefill rows, bf16: within
+    one bf16 place (the order of the f32 sum of squares, and libm, may
+    differ); the residual sum exact.  Returns each one's largest distance
+    in places."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm.ops import add_rmsnorm, rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rope.ops import rope
+    from repro_torch.kernels.rope.ref import rope_ref
+    from repro_torch.kernels.silu_mul.ops import silu_mul
+    from repro_torch.kernels.silu_mul.ref import silu_mul_ref
+
+    bf = torch.bfloat16
+    worst = {"rmsnorm": 0.0, "rope": 0.0, "silu_mul": 0.0}
+
+    def within(name, out, ref, what):
+        n = ulps(out, ref)
+        if not torch.isfinite(out.float()).all() or n > 1:
+            raise AssertionError(f"{what}: {n} bf16 places from the plain version")
+        worst[name] = max(worst[name], n)
+
+    for rows, d in ((4, 4096), (257, 4096), (4, 1536), (257, 1536), (3, 100)):
+        x = torch.randn(rows, d, generator=gen, device=dev).mul(3).to(bf)
+        res = torch.randn(rows, d, generator=gen, device=dev).to(bf)
+        scale = torch.randn(d, generator=gen, device=dev).to(bf)
+        within("rmsnorm", rmsnorm(x, scale, 1e-5), rmsnorm_ref(x, scale, 1e-5),
+               f"rmsnorm [{rows}, {d}]")
+        total, out = add_rmsnorm(x, res, scale, 1e-6)
+        if not torch.equal(total, x + res):
+            raise AssertionError(f"add_rmsnorm [{rows}, {d}]: the sum differs from x + res")
+        within("rmsnorm", out, rmsnorm_ref(x + res, scale, 1e-6), f"add_rmsnorm [{rows}, {d}]")
+    for w, theta in ((YI, 5e6), (GRANITE, 1e4)):
+        for lead in ((4, 1), (1, 257)):
+            q = torch.randn(*lead, w["h"], w["d"], generator=gen, device=dev).to(bf)
+            k = torch.randn(*lead, w["g"], w["d"], generator=gen, device=dev).to(bf)
+            pos = torch.randint(0, 4097, lead, generator=gen, device=dev)
+            rq, rk = rope(q, k, pos.to(torch.int32) if lead[1] == 1 else pos, theta)
+            within("rope", rq, rope_ref(q, pos, theta), f"rope q {tuple(q.shape)}")
+            within("rope", rk, rope_ref(k, pos, theta), f"rope k {tuple(k.shape)}")
+    for shape in ((4, 11008), (257, 11008), (48, 4, 512), (3, 1001)):
+        a = torch.randn(*shape, generator=gen, device=dev).mul(4).to(bf)
+        b = torch.randn(*shape, generator=gen, device=dev).to(bf)
+        within("silu_mul", silu_mul(a, b), silu_mul_ref(a, b), f"silu_mul {shape}")
+    torch.cuda.synchronize()
+    return worst
+
+
 def check_ssd_scan(gen, dev):
     import torch
 
@@ -1127,15 +1197,63 @@ def monolithic_batched(model, params, prompts, n):
     return decode_greedy(make_serve_step(model), params, state, torch.cat(firsts), n)
 
 
+# the layer kernels' wrappers (``kernels/{rmsnorm,rope,silu_mul}``): every
+# CUDA forward that needs no gradient launches them, training none
+LAYER_KERNELS = ("rmsnorm", "add_rmsnorm", "rope", "silu_mul")
+
+
 def kernel_ops():
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.kv_pull.ops import kv_pull, kv_pull_dequant, kv_pull_runs
     from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.rmsnorm.ops import add_rmsnorm, rmsnorm
+    from repro_torch.kernels.rope.ops import rope
+    from repro_torch.kernels.silu_mul.ops import silu_mul
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     return {"paged_attention": paged_attention, "flash_prefill": flash_prefill,
             "kv_pull": kv_pull, "kv_pull_runs": kv_pull_runs, "kv_pull_dequant": kv_pull_dequant,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "rmsnorm": rmsnorm, "add_rmsnorm": add_rmsnorm, "rope": rope,
+            "silu_mul": silu_mul}
+
+
+def layer_launches(n_layers, forwards, piece_runs):
+    """The layer kernels' launches of a decoder without SSM layers (Yi-9B,
+    granite-moe) over ``forwards`` eager forwards (a prefill: each layer's
+    attention norm, its RoPE, its FFN norm with the mixers' add, its
+    activation, then the final norm) and ``piece_runs`` runs of the L + 1
+    decode pieces from Python (``models.decode_graph``: a capture runs each
+    piece twice, its warm-up and the capture; a replay none): piece 0 the
+    first attention norm and RoPE, piece i the FFN norm with its add, the
+    activation, the next attention norm with the FFN's add and the RoPE,
+    piece L the last FFN and the final norm with its add."""
+    L = n_layers
+    return {"rmsnorm": (L + 1) * forwards + piece_runs,
+            "add_rmsnorm": L * forwards + 2 * L * piece_runs,
+            "rope": L * (forwards + piece_runs), "silu_mul": L * (forwards + piece_runs)}
+
+
+def graph_sets(model):
+    """(the model's decode graph runner, the batch sizes it has captured)."""
+    graphs = model.decode_graphs
+    return graphs, set() if graphs is None else set(graphs.sets)
+
+
+def captured_since(model, before):
+    """The batch sizes the model's decode graphs captured since ``before``
+    (``graph_sets``): all of a new runner's."""
+    graphs, sizes = graph_sets(model)
+    return len(sizes) if graphs is not before[0] else len(sizes - before[1])
+
+
+def served_captures(model, params):
+    """The batch sizes launch.serve's own copy of ``model`` captures: it
+    serves its requests one after another, each alone, so every bucket at
+    the first step (``BUCKETS``), or for MoE keyed by the exact batch the
+    one size 1."""
+    from repro_torch.models.decode_graph import BUCKETS, DecodeGraphs
+
+    return 1 if DecodeGraphs(model, params).exact else len(BUCKETS)
 
 
 def read_counts():
@@ -1147,14 +1265,16 @@ def reset_counts():
         op.launches = 0
 
 
-def expect_launches(path, got, n_layers, prompts, decode_steps, quantized):
+def expect_launches(path, got, n_layers, prompts, decode_steps, quantized, captures):
     """Fail unless ``path`` (a run whose counts were zeroed just before it)
     went through the kernels it must use: flash_prefill once per layer and
     prompt, paged_attention once per layer and decode step, kv_pull (plain
-    reads) or kv_pull_dequant (quantized reads) at least once, and never
-    ssd_scan (Yi-9B has no SSM)."""
+    reads) or kv_pull_dequant (quantized reads) at least once, never
+    ssd_scan (Yi-9B has no SSM), and the layer kernels exactly as a prefill
+    of each prompt and ``captures`` captures of the decode pieces (one a
+    batch size) launch them: every decode step a graph replay."""
     want = {"flash_prefill": n_layers * prompts, "paged_attention": n_layers * decode_steps,
-            "ssd_scan": 0}
+            "ssd_scan": 0} | layer_launches(n_layers, prompts, 2 * captures)
     bad = [f"{k} {got[k]} != {v}" for k, v in want.items() if got[k] != v]
     if quantized and got["kv_pull_dequant"] <= 0:
         bad.append("kv_pull_dequant never launched")
@@ -1179,6 +1299,7 @@ def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "ph
 
     n_layers = model.cfg.num_layers
     t_serve, t_direct = tags
+    served = served_captures(model, params)
     serve_args = ["--arch", arch, "--requests", "3", "--prompt-len", "96",
                   "--max-new", str(MAX_NEW)]
     serve_counts = {}
@@ -1191,10 +1312,11 @@ def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "ph
         log(f"{t_serve}: {path} {arch}, 3 requests in {time.perf_counter() - t0:.1f}s")
         free_model()   # the launcher's own weights and service (reference cycles) go now
         serve_counts[quantized] = expect_launches(
-            f"{t_serve}: {path}", read_counts(), n_layers, 3, 3 * MAX_NEW, quantized)
+            f"{t_serve}: {path}", read_counts(), n_layers, 3, 3 * MAX_NEW, quantized, served)
 
     svc = DisaggService(model, params, n_prefill=2, n_decode=1, num_blocks=256)
     reset_counts()
+    before = graph_sets(model)
     t0 = time.perf_counter()
     for tokens, ref in zip(prompts, refs):
         h = svc.submit(tokens)
@@ -1206,13 +1328,15 @@ def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "ph
             f"tokens {got} == monolithic; pulled {h.metrics.kv_bytes_pulled} B")
     torch.cuda.synchronize()
     seq = expect_launches(f"{t_direct}: one at a time", read_counts(), n_layers,
-                          len(prompts), len(prompts) * MAX_NEW, False)
+                          len(prompts), len(prompts) * MAX_NEW, False,
+                          captured_since(model, before))
     per_request = {k: n / len(prompts) for k, n in seq.items()}
     log(f"{t_direct}: 3 requests disaggregated in {time.perf_counter() - t0:.1f}s")
 
     # continuous batching with every pull landed first: all three decode
     # together from the first step, so every step runs at b = 3
     reset_counts()
+    before = graph_sets(model)
     hs = [svc.submit(t) for t in prompts]
     svc.admit_queued()
     svc.pump(None)
@@ -1222,7 +1346,7 @@ def phase_serve(model, params, prompts, refs, arch="yi-9b", tags=("phase 3", "ph
     batched = svc.generate_many(hs, max_new=MAX_NEW)
     torch.cuda.synchronize()
     expect_launches(f"{t_direct}: together at b = 3", read_counts(), n_layers, len(prompts),
-                    MAX_NEW, False)
+                    MAX_NEW, False, captured_since(model, before))
     by_id = {h.request_id: t for h, t in zip(hs, prompts)}
     ref3 = dict(zip(slots, monolithic_batched(model, params, [by_id[r] for r in slots],
                                               MAX_NEW)))
@@ -1290,7 +1414,8 @@ def phase_topology(model, params):
                        "--max-new", str(MAX_NEW), "--topology", "hetero_rack:0"])
     torch.cuda.synchronize()
     counts = expect_launches("phase 3b: launch.serve --topology hetero_rack:0", read_counts(),
-                             cfg.num_layers, 3, 3 * MAX_NEW, False)
+                             cfg.num_layers, 3, 3 * MAX_NEW, False,
+                             served_captures(model, params))
     for tokens, got in zip(prompts, outs):
         ref = greedy_generate(model, params, tokens, MAX_NEW)
         if got != ref:
@@ -2189,7 +2314,8 @@ def phase_examples():
         torch.cuda.synchronize()
         counts[name] = expect_counts(f"phase 13: examples/{name}.py in "
                                      f"{time.perf_counter() - t0:.1f}s", read_counts(),
-                                     {k: 0 for k in kernel_ops() if k not in kernels},
+                                     {k: 0 for k in kernel_ops()
+                                      if k not in kernels and k not in LAYER_KERNELS},
                                      at_least={k: 1 for k in kernels})
         free_model()
     return counts
@@ -2334,8 +2460,9 @@ def serve_launches(cfg, layout):
     flash_prefill once a layer at prefill (whisper: each encoder layer,
     each decoder layer's self- and cross-attention, and the cross-attention
     again every step), paged_attention once a layer a step over pages (with
-    lse where they split), ssd_scan once an SSM layer at prefill."""
-    want = dict.fromkeys(kernel_ops(), 0)
+    lse where they split), ssd_scan once an SSM layer at prefill.  The
+    layer kernels are logged, not counted."""
+    want = {k: 0 for k in kernel_ops() if k not in LAYER_KERNELS}
     L = cfg.num_layers
     if cfg.is_encoder_decoder:
         want["flash_prefill"] = cfg.encoder_layers + 2 * L + L * MAX_NEW
@@ -2539,7 +2666,8 @@ def _train_launches(cfg, steps):
     """A mesh train run's launches on each rank under remat: flash_prefill
     and ssd_scan twice a layer a step (the forward and its recompute);
     whisper's encoder, outside the remat regions, once a layer a step.
-    Nothing else."""
+    Nothing else: the layer kernels never (training takes their plain
+    versions)."""
     want = dict.fromkeys(kernel_ops(), 0)
     L = cfg.num_layers
     if cfg.is_encoder_decoder:
@@ -3376,6 +3504,59 @@ def phase_times(gen, dev):
     return rows | other_time_rows(gen, dev)
 
 
+def layer_kernel_rows(gen, dev):
+    """The three layer kernels at the cells' decode shapes (4 rows, a
+    bucket of the decode graphs) and Yi-9B's at a 257-token prefill, bf16:
+    device time a launch (a CUDA graph of 50 calls), a call from Python,
+    the plain version's device time in a CUDA graph (the chain of kernels a
+    replayed step walks) and a call of it from Python, and for the norm
+    ``F.rms_norm`` as the library's call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import add_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import add_rmsnorm_ref
+    from repro_torch.kernels.rope.ops import rope
+    from repro_torch.kernels.rope.ref import rope_ref
+    from repro_torch.kernels.silu_mul.ops import silu_mul
+    from repro_torch.kernels.silu_mul.ref import silu_mul_ref
+
+    bf = torch.bfloat16
+    rows = []
+
+    def row(name, shape, fn, plain, nbytes, flops, library=None):
+        rows.append(dict(name=name, shape=shape, ms=time_ms(fn), call_ms=call_ms(fn),
+                         plain_graph_ms=time_ms(plain), plain_ms=call_ms(plain),
+                         library_ms=None if library is None else time_ms(library),
+                         bound=bound_ms(nbytes, flops)))
+
+    for what, n, d in (("yi-9b decode", 4, 4096), ("granite-moe decode", 4, 1536),
+                       ("yi-9b prefill", 257, 4096)):
+        x, res = (torch.randn(n, d, generator=gen, device=dev).to(bf) for _ in range(2))
+        scale = torch.randn(d, generator=gen, device=dev).to(bf)
+        row("rmsnorm", f"{what}: x + res then RMSNorm [{n}, {d}]",
+            lambda: add_rmsnorm(x, res, scale, 1e-5), lambda: add_rmsnorm_ref(x, res, scale, 1e-5),
+            4 * n * d * 2 + d * 2, 5 * n * d,
+            library=lambda: F.rms_norm(x + res, (d,), scale, 1e-5))
+    for what, w, lead in (("yi-9b decode", YI, (4, 1)), ("granite-moe decode", GRANITE, (4, 1)),
+                          ("yi-9b prefill", YI, (1, 257))):
+        q = torch.randn(*lead, w["h"], w["d"], generator=gen, device=dev).to(bf)
+        k = torch.randn(*lead, w["g"], w["d"], generator=gen, device=dev).to(bf)
+        pos = torch.arange(lead[1], device=dev)[None].expand(*lead) + 100
+        heads = lead[0] * lead[1] * (w["h"] + w["g"])
+        row("rope", f"{what}: q and k {lead} x ({w['h']} + {w['g']}) x {w['d']}",
+            lambda: rope(q, k, pos, 1e4),
+            lambda: (rope_ref(q, pos, 1e4), rope_ref(k, pos, 1e4)),
+            2 * heads * w["d"] * 2 + lead[0] * lead[1] * 8 + w["d"] * 2, 6 * heads * w["d"])
+    for what, shape in (("yi-9b decode", (4, 11008)), ("granite-moe decode experts", (48, 4, 512)),
+                        ("yi-9b prefill", (257, 11008))):
+        a, b = (torch.randn(*shape, generator=gen, device=dev).to(bf) for _ in range(2))
+        n = a.numel()
+        row("silu_mul", f"{what}: {list(shape)}", lambda: silu_mul(a, b),
+            lambda: silu_mul_ref(a, b), 3 * n * 2, 5 * n)
+    return rows
+
+
 def other_time_rows(gen, dev):
     import torch
 
@@ -3524,11 +3705,13 @@ def main(argv=None) -> int:
         "kv_pull_dequant": check_kv_pull_dequant(gen, dev),
         "ssd_scan": check_ssd_scan(gen, dev),
     }
+    layer_places = check_layer_kernels(gen, dev)
     local_errs = check_rank_local(gen, dev)
     flash_lse_err, bwd_err = check_flash_training(gen, dev)
     ssd_grad_err, ssd_bwd_peak = check_ssd_training(gen, dev)
     log(f"phase 2: every kernel matches its plain version; max |err| at full width "
-        f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}; "
+        f"(bf16 for the attention kernels, f32 for ssd_scan) {errs}; the layer kernels "
+        f"within {layer_places} bf16 places; "
         f"{time.perf_counter() - t0:.1f}s")
 
     from repro_torch.configs import get_config
@@ -3675,6 +3858,18 @@ def main(argv=None) -> int:
                    else "")
                 + (f"; kv_pull on the runs' page ids {r['kv_pull_expanded_ms']:.4f} ms"
                    if "kv_pull_expanded_ms" in r else ""))
+    layer_rows = layer_kernel_rows(gen, dev)
+    for r in layer_rows:
+        # the row's kernels' launches in the zeroed launch.serve runs (3
+        # requests: 3 prefills, and the decode pieces captured once a batch size)
+        names = ("rmsnorm", "add_rmsnorm") if r["name"] == "rmsnorm" else (r["name"],)
+        r["served_launches"] = {arch: {k: c[k] for k in names} for arch, c in (
+            ("yi-9b", serve_counts[False]), ("granite-moe-3b-a800m", moe_serve[False]))}
+        log(f"phase 5: {r['name']} [{r['shape']}]: {r['ms']:.4f} ms on the device "
+            f"({r['call_ms']:.4f} ms a call from Python), plain {r['plain_graph_ms']:.4f} ms on "
+            f"the device ({r['plain_ms']:.4f} ms a call), library {fmt_ms(r['library_ms'])}, "
+            f"bound {r['bound'][0]:.5f} ms by {r['bound'][1]}; launches in launch.serve "
+            f"{r['served_launches']}")
     tr = rows["flash_prefill"]["training"]
     for what, r in (("forward with lse", tr["forward_lse"]), ("training backward",
                                                              tr["backward"])):
@@ -3705,7 +3900,8 @@ def main(argv=None) -> int:
     log(f"phase 14 records: {json.dumps(mesh_runs, default=str)}")
     log(f"phase 15 records: {json.dumps(mesh_train, default=str)}")
     log(f"phase 16 records: {json.dumps(mesh16, default=str)}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "layer_kernels": layer_rows,
+                      "layer_kernels_max_places": layer_places}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""Hand-written Hopper kernels of the port, one package per TPU kernel.
+"""Hand-written Hopper kernels of the port, one package per TPU kernel,
+and three layer kernels with no TPU counterpart (``rmsnorm``, ``rope``,
+``silu_mul``, which route by ``build.no_grad_on_cuda``).
 
 Each ``<name>/ops.py`` checks its inputs, launches the CUDA kernel from
 ``csrc/`` on CUDA tensors (built by ``build.py`` at first use) and runs the

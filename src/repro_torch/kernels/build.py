@@ -13,7 +13,10 @@ On meta tensors (the dry-run, ``launch.dryrun``) a wrapper launches
 nothing and runs no plain version: it returns outputs of the right shapes
 and dtypes and adds its kernel's work to ``META_WORK`` (``count_meta``),
 the operations and bytes of the bound formula its ``work`` function
-states.
+states.  The layer kernels (``rmsnorm``, ``rope``, ``silu_mul``), whose
+plain versions also serve training and the dry-run, route by
+``no_grad_on_cuda`` instead: the kernel for CUDA tensors that need no
+gradient, the plain version for everything else, meta tensors included.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["library", "build", "check", "check_design", "on_cuda", "on_meta", "count_meta",
-           "META_WORK", "stream_ptr", "CSRC", "BUILD_DIR"]
+__all__ = ["library", "build", "check", "check_design", "on_cuda", "on_meta", "no_grad_on_cuda",
+           "layer_dtype", "count_meta", "META_WORK", "stream_ptr", "CSRC", "BUILD_DIR"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -52,6 +55,9 @@ SIGNATURES = {
     "ssd_scan_design": [ctypes.POINTER(_I), _I],
     "ssd_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
+    "rmsnorm_launch": [_P, _P, _P, _P, _P, _I64, _I, _F, _I, _P],
+    "rope_launch": [_P, _P, _P, _P, _P, _I, _I64, _I64, _I64, _I64, _P, _I, _I, _I, _I, _P],
+    "silu_mul_launch": [_P, _P, _P, _I64, _I, _P],
 }
 
 
@@ -178,6 +184,33 @@ def on_meta(name: str, *tensors) -> bool:
     if any(meta) and not all(meta):
         raise ValueError(f"{name}: meta tensors mixed with tensors on a device")
     return all(meta)
+
+
+def no_grad_on_cuda(name: str, *tensors) -> bool:
+    """Route a layer kernel's wrapper: True (the kernel launches) when every
+    tensor lies on one CUDA device and autograd records nothing of the
+    call; False (the plain version runs) on the CPU, on meta tensors, and
+    when a gradient is needed (grad mode on and a tensor requiring grad).
+    Tensors on several devices raise, as in ``on_cuda``."""
+    import torch
+
+    if on_meta(name, *tensors) or not on_cuda(name, *tensors):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
+def layer_dtype(name: str, *tensors) -> int:
+    """The C interface's code of the one dtype of a layer kernel's tensors
+    (0 float32, 1 bfloat16, as ``csrc/norm_rope_act.cu`` reads it).  Other
+    dtypes, or tensors of several, raise: the kernels hold no other."""
+    import torch
+
+    dtypes = {t.dtype for t in tensors}
+    code = {torch.float32: 0, torch.bfloat16: 1}.get(next(iter(dtypes)))
+    if len(dtypes) != 1 or code is None:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16 tensors of one dtype, "
+                         f"got {sorted(map(str, dtypes))}")
+    return code
 
 
 # the work of the kernel calls made on meta tensors since the last reset:

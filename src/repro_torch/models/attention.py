@@ -21,25 +21,16 @@ import torch
 
 from repro_torch.kernels.flash_prefill.ref import dense_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
+# rope_qk: q and k rotated together (one launch on the card); rope: the
+# plain rotate-half of one tensor
+from repro_torch.kernels.rope.ops import rope as rope_qk
+from repro_torch.kernels.rope.ref import rope_ref as rope
 from repro_torch.models import sharding
 
 __all__ = [
-    "rope", "gqa_attention", "paged_decode_attention", "token_slots", "write_token_kv",
+    "rope", "rope_qk", "gqa_attention", "paged_decode_attention", "token_slots", "write_token_kv",
     "KVPages", "paged_decode_with_write",
 ]
-
-
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [..., seq, heads, head_dim]; positions: [..., seq].  Angles in
-    f32, output in x.dtype."""
-    hd = x.shape[-1]
-    half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    angles = positions[..., :, None, None].float() * freqs
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
 
 
 def gqa_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,

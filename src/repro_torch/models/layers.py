@@ -25,12 +25,14 @@ import itertools
 
 import torch
 
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.kernels.silu_mul.ops import silu_mul
 from repro_torch.models import sharding
 
 PARAM_DTYPE = torch.bfloat16
 
-__all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "row_dense", "rmsnorm", "layernorm",
-           "column_input", "swiglu", "gelu_mlp", "embed"]
+__all__ = ["PARAM_DTYPE", "normal_", "dense_init", "dense", "row_dense", "rmsnorm",
+           "add_rmsnorm", "layernorm", "column_input", "swiglu", "gelu_mlp", "embed"]
 
 
 def normal_(out: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
@@ -89,9 +91,14 @@ def row_dense(p, x, d_in: int):
 
 
 def rmsnorm(p, x, eps: float = 1e-5):
-    h = x.float()
-    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
-    return (h * p["scale"].float()).to(x.dtype)
+    """Statistics in f32, times the scale in f32, one cast back to x's
+    dtype (``kernels/rmsnorm``: one launch on the card without autograd)."""
+    return rmsnorm_ops.rmsnorm(x, p["scale"], eps)
+
+
+def add_rmsnorm(p, x, residual, eps: float = 1e-5):
+    """(x + residual, ``rmsnorm`` of it), in one launch on the card."""
+    return rmsnorm_ops.add_rmsnorm(x, residual, p["scale"], eps)
 
 
 def layernorm(p, x, eps: float = 1e-5):
@@ -123,7 +130,7 @@ def swiglu(p, x, d_ff: int | None = None):
     width) the hidden may be this rank's columns and ``down`` row-parallel."""
     if d_ff is not None:
         x = column_input(x, p["gate"]["w"], d_ff)
-    h = torch.nn.functional.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    h = silu_mul(dense(p["gate"], x), dense(p["up"], x))
     return dense(p["down"], h) if d_ff is None else row_dense(p["down"], h, d_ff)
 
 

@@ -48,6 +48,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.silu_mul.ops import silu_mul
 from repro_torch.models import sharding
 from repro_torch.models.layers import dense_init, swiglu
 
@@ -101,7 +102,7 @@ def moe_route(p, xg: torch.Tensor, cfg, cap: int) -> Routing:
 
 def _ffn_local(xe, gate, up, down):
     """Per-expert SwiGLU over buffers.  xe: [E, n, d]."""
-    return torch.bmm(F.silu(torch.bmm(xe, gate)) * torch.bmm(xe, up), down)
+    return torch.bmm(silu_mul(torch.bmm(xe, gate), torch.bmm(xe, up)), down)
 
 
 def _expert_weights(p, ff: int):

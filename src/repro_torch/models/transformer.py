@@ -19,8 +19,12 @@ layer.  Layers are a Python loop over that stack (the reference's
 Prefill attention always goes through the flash_prefill kernel (with the
 sliding window and the always-visible meta prefix), decode attention over
 pages through the paged_attention kernel, the SSD scan of prefill through
-the ssd_scan kernel.  Ring-buffer decode attention and the MoE dispatch
-are plain torch: the reference has no kernel for either.
+the ssd_scan kernel.  RMSNorm (with the residual add before it where the
+code can fuse it), RoPE of q and k and the SwiGLU's gated activation go
+through the layer kernels (``kernels/{rmsnorm,rope,silu_mul}``) on CUDA
+tensors that need no gradient, their plain versions elsewhere.
+Ring-buffer decode attention and the MoE dispatch are plain torch: the
+reference has no kernel for either.
 Encoder-decoder configs take ``models.whisper.EncDecLM``.
 
 Decode steps update the state's KV pages and ring buffers IN PLACE (the
@@ -69,14 +73,14 @@ import torch.utils.checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import sharding
 from repro_torch.models.attention import (
-    KVPages, identity_slice, paged_decode_attention, paged_decode_with_write, rope, token_slots,
+    KVPages, identity_slice, paged_decode_attention, paged_decode_with_write, rope_qk, token_slots,
     write_token_kv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decode_graph import DecodeGraphs
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import (
-    PARAM_DTYPE, column_input, dense, dense_init, embed, gelu_mlp, normal_, rmsnorm, row_dense,
-    swiglu)
+    PARAM_DTYPE, add_rmsnorm, column_input, dense, dense_init, embed, gelu_mlp, normal_, rmsnorm,
+    row_dense, swiglu)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.sharding import MeshLayout
 from repro_torch.models.ssm import ssm_prefill, ssm_state_shapes, ssm_step
@@ -405,19 +409,18 @@ class DecoderLM:
             "out_proj": stacked_dense(di, d),
         }
 
-    def _apply_ffn(self, p, x, ffn_kind: str, batch_axes=()):
-        """The residual branch of the sub-layer's FFN on x [..., d] and its
-        load-balance loss (None but for MoE): a dense MLP (on the rank's
-        d_ff under TP), or MoE over x as one row of tokens per leading
-        index (the decode step's [b, d] as b rows of one token, as the
-        reference's ``[:, None, :]``; ``batch_axes``: the mesh axes x's
-        rows are split over)."""
+    def _ffn(self, p, hn, ffn_kind: str, batch_axes=()):
+        """The residual branch of the sub-layer's FFN on the FFN norm's
+        output hn [..., d] and its load-balance loss (None but for MoE): a
+        dense MLP (on the rank's d_ff under TP), or MoE over hn as one row
+        of tokens per leading index (the decode step's [b, d] as b rows of
+        one token, as the reference's ``[:, None, :]``; ``batch_axes``: the
+        mesh axes hn's rows are split over)."""
         cfg = self.cfg
-        hn = rmsnorm(p["mlp_norm"], x, cfg.norm_eps)
         if ffn_kind == "moe":
             y, aux = moe_apply(p["moe"], hn if hn.dim() == 3 else hn[:, None, :], cfg,
                                batch_axes=batch_axes)
-            return (y if x.dim() == 3 else y[:, 0]), aux
+            return (y if hn.dim() == 3 else y[:, 0]), aux
         ff = cfg.d_ff_dense if (cfg.family == "moe" and cfg.d_ff_dense) else cfg.d_ff
         if cfg.mlp_type == "swiglu":
             return swiglu(p["mlp"], hn, ff), None
@@ -455,10 +458,9 @@ class DecoderLM:
             h = column_input(rmsnorm(p["attn_norm"], x, cfg.norm_eps), p["attn"]["q"]["w"],
                              cfg.attn_dim)
             b, s, _ = h.shape
-            q = rope(heads(p["attn"]["q"], h, cfg.num_heads, cfg.head_dim), positions,
-                     cfg.rope_theta)
-            k = rope(heads(p["attn"]["k"], h, cfg.num_kv_heads, cfg.head_dim), positions,
-                     cfg.rope_theta)
+            q, k = rope_qk(heads(p["attn"]["q"], h, cfg.num_heads, cfg.head_dim),
+                           heads(p["attn"]["k"], h, cfg.num_kv_heads, cfg.head_dim), positions,
+                           cfg.rope_theta)
             v = heads(p["attn"]["v"], h, cfg.num_kv_heads, cfg.head_dim)
             kq, vq = kv_for(q, k, v, cfg.num_heads, cfg.num_kv_heads)
             a = flash_attention(q, kq, vq, causal=True, sliding_window=cfg.sliding_window,
@@ -471,12 +473,11 @@ class DecoderLM:
             outs["ssm"], (ssd, conv) = ssm_prefill(p["ssm"], h, cfg)
             if return_kv:
                 caches["ssd"], caches["conv"] = ssd, conv
-        x = x + self._mix(p, outs)
-        aux = None
-        if ffn_kind != "none":
-            y, aux = self._apply_ffn(p, x, ffn_kind, batch_axes)
-            x = x + y
-        return x, caches, aux
+        if ffn_kind == "none":
+            return x + self._mix(p, outs), caches, None
+        x, hn = add_rmsnorm(p["mlp_norm"], x, self._mix(p, outs), cfg.norm_eps)
+        y, aux = self._ffn(p, hn, ffn_kind, batch_axes)
+        return x + y, caches, aux
 
     def _embed_inputs(self, params, tokens, vision_embeds=None):
         """Token embeddings, with the VLM's image embeddings early-fused in
@@ -683,17 +684,15 @@ class DecoderLM:
         return state
 
     # ------------------------------------------------------ decode step
-    def _attn_qkv(self, p, h, pos):
-        """The new token's q, k, v [b, heads, hd] (this rank's heads and
-        groups under TP)."""
+    def _attn_qkv(self, p, hn, pos):
+        """The new token's q, k, v [b, heads, hd] from the attention norm's
+        output ``hn`` (this rank's heads and groups under TP)."""
         cfg = self.cfg
-        hn = rmsnorm(p["attn_norm"], h, cfg.norm_eps)
         q = heads(p["attn"]["q"], hn, cfg.num_heads, cfg.head_dim)[:, None]
         k = heads(p["attn"]["k"], hn, cfg.num_kv_heads, cfg.head_dim)[:, None]
         v = heads(p["attn"]["v"], hn, cfg.num_kv_heads, cfg.head_dim)
-        q = rope(q, pos[:, None], cfg.rope_theta)[:, 0]
-        k = rope(k, pos[:, None], cfg.rope_theta)[:, 0]
-        return q, k, v
+        q, k = rope_qk(q, k, pos[:, None], cfg.rope_theta)
+        return q[:, 0], k[:, 0], v
 
     def _paged_attention(self, q, k, v, pages: KVPages, state: DecodeState):
         """Decode attention over the paged KV: every head and group gathered
@@ -714,7 +713,8 @@ class DecoderLM:
         cfg = self.cfg
         a = ssm_out = ssm_state = None
         if cfg.has_attention:
-            q, k, v = self._attn_qkv(p, h, state.context_lens)
+            q, k, v = self._attn_qkv(p, rmsnorm(p["attn_norm"], h, cfg.norm_eps),
+                                     state.context_lens)
             if cfg.sliding_window:
                 a, _ = attend_whole(q, k, v, cfg.num_heads, cfg.num_kv_heads,
                                     lambda q, k, v: (self._ring_attention(q, k, v, state, layer),
@@ -725,24 +725,26 @@ class DecoderLM:
             hn = rmsnorm(p["ssm_norm"], h, cfg.norm_eps)
             ssm_out, ssm_state = ssm_step(
                 p["ssm"], hn, cfg, (state.ssd_state[layer], state.conv_state[layer]))
-        h = self._sub_decode_tail(p, h, a, ffn_kind, ssm_out,
-                                  state.layout.batch_axes if state.layout else ())
-        return h, pages, ssm_state
+        h, y = self._sub_decode_tail(p, h, a, ffn_kind, ssm_out,
+                                     state.layout.batch_axes if state.layout else ())
+        return (h if y is None else h + y), pages, ssm_state
 
     def _sub_decode_tail(self, p, h, a, ffn_kind: str, ssm_out=None, batch_axes=()):
         """The rest of a decode layer after its token mixers: the ``o``
         projection of the attention output ``a`` [b, heads, hd] (None
         without attention), the mixers' sum into the residual, then the
-        FFN's."""
+        FFN -> (h, y): the residual with the mixers' sum in it and the FFN's
+        output still to add to it (None without an FFN), which the next
+        norm adds in its own launch (``decode_piece``)."""
         outs = {}
         if a is not None:
             outs["attn"] = row_dense(p["attn"]["o"], a.reshape(h.shape[0], -1), self.cfg.attn_dim)
         if ssm_out is not None:
             outs["ssm"] = ssm_out
-        h = h + self._mix(p, outs)
-        if ffn_kind != "none":
-            h = h + self._apply_ffn(p, h, ffn_kind, batch_axes)[0]
-        return h
+        if ffn_kind == "none":
+            return h + self._mix(p, outs), None
+        h, hn = add_rmsnorm(p["mlp_norm"], h, self._mix(p, outs), self.cfg.norm_eps)
+        return h, self._ffn(p, hn, ffn_kind, batch_axes)[0]
 
     def _ring_attention(self, q, k_new, v_new, state: DecodeState, layer: int):
         """Sliding-window decode over layer ``layer``'s ring (the new token
@@ -836,21 +838,28 @@ class DecoderLM:
           norm, q, k, v and RoPE -> (x, q, k, v);
         * 0 < i < L: ``x`` the residual, ``a`` layer i-1's attention output
           [b, heads, hd]; layer i-1's ``o`` projection, residual and FFN,
-          then layer i's q, k, v -> (x, q, k, v);
-        * L: the last layer's tail, the final norm and the logits -> logits,
-          or with ``greedy`` (logits, ``greedy_tokens`` of them).
+          then layer i's attention norm (the FFN's output added to the
+          residual in its launch), q, k, v and RoPE -> (x, q, k, v);
+        * L: the last layer's tail, the final norm (with that add) and the
+          logits -> logits, or with ``greedy`` (logits, ``greedy_tokens`` of
+          them).
 
         Every row is computed from its own inputs alone, but for MoE, whose
         rows share a group (``models.moe``)."""
         cfg = self.cfg
         if i == 0:
-            x = embed(params["embed"], self._tokens(x), cfg.padded_vocab)
+            x, y = embed(params["embed"], self._tokens(x), cfg.padded_vocab), None
         else:
             _, p, kind = layers[i - 1]
-            x = self._sub_decode_tail(p, x, a, kind)
+            x, y = self._sub_decode_tail(p, x, a, kind)
+        norm = layers[i][1]["attn_norm"] if i < len(layers) else params["final_norm"]
+        if y is None:
+            hn = rmsnorm(norm, x, cfg.norm_eps)
+        else:  # the last FFN's output added to the residual by the norm's launch
+            x, hn = add_rmsnorm(norm, x, y, cfg.norm_eps)
         if i < len(layers):
-            return (x, *self._attn_qkv(layers[i][1], x, pos))
-        logits = self._logits(params, rmsnorm(params["final_norm"], x, cfg.norm_eps))
+            return (x, *self._attn_qkv(layers[i][1], hn, pos))
+        logits = self._logits(params, hn)
         return (logits, greedy_tokens(logits, cfg.vocab_size)) if greedy else logits
 
     def paged_attend(self, state: DecodeState):

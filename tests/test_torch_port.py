@@ -195,7 +195,7 @@ def test_kernels_do_not_build_at_import():
     from repro_torch.kernels import build
 
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "flash_prefill.cu", "kv_pull.cu", "paged_attention.cu", "ssd_scan.cu"]
+        "flash_prefill.cu", "kv_pull.cu", "norm_rope_act.cu", "paged_attention.cu", "ssd_scan.cu"]
 
 
 def test_wrappers_refuse_other_devices_and_mixed_placement():
